@@ -1,0 +1,144 @@
+"""Build and load the port's CUDA kernels.
+
+On first use, every ``csrc/*.cu`` source is compiled by ``nvcc`` for
+Hopper (``sm_90a``), one process per source started together, and the
+objects are linked into one shared library with a plain C interface.
+The library is named by a hash of the sources and flags, so an unchanged
+tree reuses it and a changed one rebuilds.  It is loaded with ``ctypes``:
+pointers and the stream travel as ``c_void_p``, and each C function
+returns ``cudaGetLastError()`` after its launch, which :func:`launch`
+turns into an exception.
+
+The build lands in ``kernels/build/`` beside this file (listed in
+``.gitignore``); nothing is built when the package is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+#: C signature of every kernel entry point (all return an int error code)
+SIGNATURES: Dict[str, tuple] = {
+    "lsh_hash": (_P, _P, _P, _F, _I, _I, _I, _P, _P),
+    "slot_counts": (_P, _LL, _I, _P, _P),
+    "bucket_core_stats": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+}
+
+#: launches per kernel since the last reset — incremented by
+#: :func:`launch` and nowhere else
+LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+#: each kernel's ``<name>_launch`` entry point, resolved once by :func:`load`
+_entry: Dict[str, Any] = {}
+#: wall seconds the last build took (0.0 when an existing library was
+#: reused)
+build_seconds = 0.0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [str(Path(home) / "bin" / "nvcc")] if home else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and Path(c).is_file():
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels cannot be built")
+
+
+def _sources() -> list:
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in _sources():
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return BUILD_DIR / f"libreprotorch_{h.hexdigest()[:16]}.so"
+
+
+def _compile(out: Path) -> None:
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        errors = []
+        for src, _obj, p in procs:
+            log, _ = p.communicate()
+            if p.returncode:
+                errors.append(f"{src.name}:\n{log.decode(errors='replace')}")
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        part = Path(tmp) / out.name
+        subprocess.run([nvcc, *NVCC_FLAGS, "-shared",
+                        *[str(o) for _s, o, _p in procs], "-o", str(part)],
+                       check=True, capture_output=True)
+        os.replace(part, out)  # atomic: a concurrent loader sees all or none
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, compiled on first use; raises if it cannot be
+    built or loaded."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        path = library_path()
+        if not path.exists():
+            t0 = time.perf_counter()
+            _compile(path)
+            build_seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name + "_launch")
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _entry[name] = fn
+        _lib = lib
+        return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s C entry point and count the launch; raises
+    if the launch was refused."""
+    fn = _entry.get(name)
+    if fn is None:  # first launch: build and load (under the lock)
+        load()
+        fn = _entry[name]
+    err = fn(*args)
+    if err:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error "
+                           f"{err}")
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

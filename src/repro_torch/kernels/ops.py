@@ -1,0 +1,68 @@
+"""Public wrappers for the port's kernels, dispatched by device.
+
+A CUDA tensor launches the hand-written Hopper kernel (built on first
+use) or raises; a CPU tensor runs the plain PyTorch version in
+:mod:`.ref`.  ``impl="ref"`` runs the plain version on any device — it
+exists so that tests and ``chip_smoke.py`` can hold a kernel against its
+plain version on the card.  There is no environment default and no
+fallback: a CUDA tensor never silently takes the plain path.
+
+Each kernel counts its launches (:func:`launch_counts`,
+:func:`reset_launch_counts`); calls of the plain version count nothing.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from . import _build
+from . import bucket_ops as _bo
+from . import lsh_hash as _lh
+from . import ref as _ref
+
+#: the kernels ops dispatches to the card, each a ``<name>_launch`` C
+#: entry point in ``csrc/*.cu``
+KERNELS = tuple(_build.SIGNATURES)
+
+
+def _on_card(t: torch.Tensor, impl: Optional[str]) -> bool:
+    if impl not in (None, "ref"):
+        raise ValueError(f"impl must be None or 'ref', got {impl!r}")
+    return impl is None and t.device.type == "cuda"
+
+
+def lsh_hash(x, eta, mixers, *, inv_cell: float, impl: Optional[str] = None):
+    if _on_card(x, impl):
+        return _lh.lsh_hash(x, eta, mixers, inv_cell=inv_cell)
+    return _ref.lsh_hash(x, eta, mixers, inv_cell)
+
+
+def slot_counts(slots, *, n_slots: int, impl: Optional[str] = None):
+    if _on_card(slots, impl):
+        return _bo.slot_counts(slots, n_slots=n_slots)
+    return _ref.slot_counts(slots, n_slots)
+
+
+def bucket_core_stats(slots, sizes, *, k: int, impl: Optional[str] = None):
+    if _on_card(slots, impl):
+        return _bo.bucket_core_stats(slots, sizes, k=k)
+    return _ref.bucket_core_stats(slots, sizes, k)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last :func:`reset_launch_counts`."""
+    return dict(_build.LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    _build.reset_launches()
+
+
+def ensure_built() -> float:
+    """Build (or reuse) and load the kernel library; returns the build's
+    wall seconds, 0.0 when an existing library was reused.  Raises when
+    it cannot be built."""
+    _build.load()
+    return _build.build_seconds

@@ -1,0 +1,106 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Mirrors of ``repro.kernels.ref`` (``lsh_hash``, ``slot_counts``,
+``bucket_core_stats``) that run on any device.  On a CPU tensor the
+wrappers in :mod:`.ops` run these; on the card they are what each CUDA
+kernel is held against, bit for bit.
+
+One deliberate difference from ``repro.kernels.ref``: an id outside
+``[0, n)`` contributes nothing to ``slot_counts`` or
+``bucket_core_stats``, as in the TPU kernels, where ``repro.kernels.ref``
+wraps a negative id like numpy indexing.  The engine never produces such
+ids.
+
+Integer arithmetic is done in int64 and folded back to int32: torch's
+``>>`` on int32 is arithmetic, not logical, and int32 multiplication is
+not guaranteed to wrap.  ``eps_neighbor_counts`` and ``attention`` come
+with a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# the reference's finalizer constants (repro/kernels/ref.py MIX_A = -1975444243,
+# MIX_B = -1029739211) as unsigned 32-bit values.  Its comments name
+# murmur3's 0x85EBCA6D / 0xC2B2AE35, but the keys are defined by the
+# values, and these are they.
+MIX_A = 0x8A411CED
+MIX_B = 0xC29F6D35
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(h: torch.Tensor, m: int) -> torch.Tensor:
+    """``(h * m) mod 2^32`` for int64 ``h`` in ``[0, 2^32)``: split ``h``
+    in 16-bit halves so no int64 product overflows."""
+    lo = (h & 0xFFFF) * m
+    hi = ((h >> 16) * m) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def _avalanche(h: torch.Tensor) -> torch.Tensor:
+    """murmur3-style finalizer on int64 values in ``[0, 2^32)``; the shifts are
+    logical because the values are non-negative."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, MIX_A)
+    h = h ^ (h >> 13)
+    h = _mul32(h, MIX_B)
+    return h ^ (h >> 16)
+
+
+def _to_int32(h: torch.Tensor) -> torch.Tensor:
+    """Reinterpret int64 values in ``[0, 2^32)`` as int32."""
+    return torch.where(h >= 2**31, h - 2**32, h).to(torch.int32)
+
+
+def lsh_hash(x: torch.Tensor, eta: torch.Tensor, mixers: torch.Tensor,
+             inv_cell: float) -> torch.Tensor:
+    """Grid-LSH bucket keys.
+
+    x:      (n, d) float32 points
+    eta:    (t,)   float32 per-table offsets
+    mixers: (2, t, d) int32 odd multipliers
+    returns (n, t, 2) int32 keys, bit-identical to
+    ``repro.kernels.ref.lsh_hash``.
+    """
+    inv = torch.tensor(np.float32(inv_cell), dtype=torch.float32,
+                       device=x.device)
+    # two separate f32 ops, in this order: (x + eta) then * inv_cell
+    shifted = x[:, None, :] + eta[None, :, None]
+    codes = torch.floor(shifted * inv).to(torch.int32).to(torch.int64)
+    m = mixers.to(torch.int64)
+    # each product fits int64 (|code|, |mixer| < 2^31); masking it to 32
+    # bits keeps the sum over d exact before the final mod 2^32
+    acc_a = ((codes * m[0][None]) & _M32).sum(-1) & _M32
+    acc_b = ((codes * m[1][None]) & _M32).sum(-1) & _M32
+    return torch.stack([_to_int32(_avalanche(acc_a)),
+                        _to_int32(_avalanche(acc_b))], dim=-1)
+
+
+def slot_counts(slots: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """Occupancy histogram of a batch's (n, t) slot matrix:
+    ``out[s] = #{(p, i) : slots[p, i] == s}`` for ``s`` in
+    ``[0, n_slots)``; other ids are dropped."""
+    flat = slots.reshape(-1).to(torch.int64)
+    flat = flat[(flat >= 0) & (flat < n_slots)]
+    out = torch.zeros(n_slots, dtype=torch.int32, device=slots.device)
+    return out.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+
+
+def bucket_core_stats(slots: torch.Tensor, sizes: torch.Tensor, k: int):
+    """Definition-4 support counts from bucket occupancies.
+
+    slots: (n, t) int32 bucket-slot ids
+    sizes: (nb,) int32 occupancy per slot
+    returns (support, core): (n,) int32 ``#{i : sizes[slots[p,i]] >= k}``
+    over the ids in ``[0, nb)``, and ``support > 0`` as int32.
+    """
+    nb = sizes.shape[0]
+    s = slots.to(torch.int64)
+    valid = (s >= 0) & (s < nb)
+    # invalid ids read a zero appended past the end and are masked out
+    padded = torch.cat([sizes, sizes.new_zeros(1)])
+    occ = padded[torch.where(valid, s, nb)]
+    supp = (valid & (occ >= k)).sum(dim=-1, dtype=torch.int32)
+    return supp, (supp > 0).to(torch.int32)

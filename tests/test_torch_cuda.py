@@ -1,0 +1,120 @@
+"""The port on the card: each CUDA kernel against its plain PyTorch
+version, and the ``soa-device`` engine on ``cuda`` against the host
+``soa`` engine.  Tolerance zero — all results are integers.
+
+Every test here is marked ``cuda`` and skips without a CUDA device.  The
+file imports neither JAX nor ``repro``, so it runs on a machine that has
+only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.api import ClusterConfig, build_index  # noqa: E402
+from repro_torch.data import blobs  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+LSH_SHAPES = [(64, 4, 3), (200, 16, 10), (33, 7, 5), (256, 20, 8),
+              (1000, 10, 10)]
+BUCKET_SHAPES = [(1, 1, 1), (7, 3, 5), (203, 7, 37), (256, 8, 128),
+                 (301, 10, 513), (1000, 10, 70000)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _slots(n, t, nb, seed):
+    """Ids in [-3, nb + 3): in range and out of range on both sides."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(-3, nb + 3, (n, t)).astype(np.int32)
+
+
+@pytest.mark.parametrize("n,d,t", LSH_SHAPES)
+def test_lsh_hash_matches_plain(cuda, n, d, t):
+    rng = np.random.default_rng(n + d + t)
+    x = torch.from_numpy((rng.normal(size=(n, d)) * 300).astype(
+        np.float32)).to(cuda)
+    eta = torch.from_numpy(rng.uniform(0, 1.5, size=(t,)).astype(
+        np.float32)).to(cuda)
+    mixers = torch.from_numpy(rng.integers(1, 2**31 - 1, size=(2, t, d))
+                              .astype(np.int32) | 1).to(cuda)
+    ops.reset_launch_counts()
+    got = ops.lsh_hash(x, eta, mixers, inv_cell=1 / 1.5)
+    want = ops.lsh_hash(x, eta, mixers, inv_cell=1 / 1.5, impl="ref")
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lsh_hash"] == 1
+    assert torch.equal(got, want)
+    # the plain version on the card equals the plain version on the CPU
+    assert torch.equal(want.cpu(), ops.lsh_hash(
+        x.cpu(), eta.cpu(), mixers.cpu(), inv_cell=1 / 1.5))
+
+
+@pytest.mark.parametrize("n,t,nb", BUCKET_SHAPES)
+def test_bucket_kernels_match_plain(cuda, n, t, nb):
+    rng = np.random.default_rng(n + t + nb)
+    slots = torch.from_numpy(_slots(n, t, nb, n + nb)).to(cuda)
+    sizes = torch.from_numpy(rng.integers(0, 12, nb).astype(np.int32)
+                             ).to(cuda)
+    ops.reset_launch_counts()
+    assert torch.equal(ops.slot_counts(slots, n_slots=nb),
+                       ops.slot_counts(slots, n_slots=nb, impl="ref"))
+    for k in (1, 3, 9):
+        got = ops.bucket_core_stats(slots, sizes, k=k)
+        want = ops.bucket_core_stats(slots, sizes, k=k, impl="ref")
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"lsh_hash": 0, "slot_counts": 1,
+                                   "bucket_core_stats": 3}
+
+
+def test_wrappers_reject_bad_arguments(cuda):
+    s = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        ops.slot_counts(s.to(torch.int64), n_slots=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.bucket_core_stats(s.t(), torch.zeros(3, dtype=torch.int32,
+                                                 device=cuda), k=1)
+    with pytest.raises(ValueError, match="shape"):
+        ops.lsh_hash(torch.zeros((4, 2), device=cuda),
+                     torch.zeros(3, device=cuda),
+                     torch.ones((2, 3, 3), dtype=torch.int32, device=cuda),
+                     inv_cell=1.0)
+
+
+@pytest.mark.parametrize("orphans", [True, False])
+def test_soa_device_on_cuda_matches_host_soa(cuda, orphans):
+    X, _ = blobs(n=3000, d=10, n_clusters=10, seed=1)
+    cfg = ClusterConfig(d=10, k=10, t=10, eps=0.75, seed=1,
+                        backend="soa-device", attach_orphans=orphans)
+    dev = build_index(cfg)
+    host = build_index(cfg.replace(backend="soa"))
+    assert dev.engine.device.type == "cuda"
+    dev.drain_deltas()
+    host.drain_deltas()
+    ops.reset_launch_counts()
+    for b in range(0, len(X), 250):
+        assert dev.insert_batch(X[b:b + 250]) == host.insert_batch(
+            X[b:b + 250])
+        assert sorted(dev.drain_deltas()) == sorted(host.drain_deltas())
+        if b % 1000 == 750:
+            victims = dev.ids()[::6]
+            dev.delete_batch(victims)
+            host.delete_batch(victims)
+            assert sorted(dev.drain_deltas()) == sorted(host.drain_deltas())
+        assert dev.labels() == host.labels()
+    counts = ops.launch_counts()
+    assert counts == {"lsh_hash": 12, "slot_counts": 12,
+                      "bucket_core_stats": 12}
+    dev.check_invariants()
+    for key, val in dev.snapshot()["state"].items():
+        np.testing.assert_array_equal(val, host.snapshot()["state"][key])
