@@ -19,18 +19,36 @@ Phases, each of which raises on failure (exit code != 0):
              runs through the host ``soa`` engine (no kernels); labels,
              deltas and the restored labels must be equal, and every
              kernel must have launched.  Prints throughput and ARI.
-4. kernels — each kernel at the main path's shapes (its last insert
-             batch and slot count), held bit-exact against its plain
-             PyTorch version on the card (out-of-range ids included for
-             the bucket kernels), then timed with CUDA events against
-             the plain version and, where one exists, a library call;
-             the profiler gives each kernel's device time per launch.
-5. profile — device busy share of five more insert batches at the
+4. baselines — the paper's Table-2 streaming protocol at its default
+             scale (``benchmarks/table2.py``, scale 0.1): blobs n=20,000,
+             d=10, 10 clusters, k=10, t=10, eps=0.75, batches of 1000
+             with ``labels()`` after every batch, through the host
+             backends ``naive``, ``emz-static`` and ``emz-fixed``; prints
+             each one's seconds, ARI and NMI; snapshot + restore of
+             ``naive`` and ``emz-static`` must give equal labels.  Then
+             the exact eps-ball counts of the final 20,000 points on the
+             card (the ``eps_neighbor_counts`` kernel, which must
+             launch), held bit-exact against its plain version; the rows
+             where they differ from the host float64 counts of
+             ``core.naive_dbscan`` and the core flags that flip at k=10
+             are reported (two definitions, not a check).
+5. kernels — each kernel at its path's shapes, held bit-exact against
+             its plain PyTorch version on the card, then timed with CUDA
+             events against the plain version and, where one exists, a
+             library call; the profiler gives each kernel's device time
+             per launch.  The bucket kernels run at the main path's last
+             insert batch and slot count (out-of-range ids included);
+             ``eps_neighbor_counts`` at the main path's points (200,000
+             x 10) and at 20,000 x 10, beside a blocked ``torch.matmul``
+             composite (TF32 off; several calls, so no library column),
+             and over a sweep of tile-ragged n and d in {1, 3, 16, 54}.
+6. profile — device busy share of five more insert batches at the
              main path's final state (torch.profiler).
 
 The line before the last is one JSON object with a ``kernels`` list; the
 last line is ``{"ok": true, "device": {...}}``.  ``--points`` cuts the
-stream (the cut is printed); d, k, t, eps and the batch never change.
+main stream only (the cut is printed); d, k, t, eps and the batch never
+change.
 """
 
 from __future__ import annotations
@@ -60,7 +78,18 @@ KERNEL_SOURCES = {
                     "src/repro/kernels/bucket_ops.py:117"),
     "bucket_core_stats": ("src/repro_torch/kernels/csrc/bucket_ops.cu",
                           "src/repro/kernels/bucket_ops.py:63"),
+    "eps_neighbor_counts": ("src/repro_torch/kernels/csrc/pairwise_dist.cu",
+                            "src/repro/kernels/pairwise_dist.py:60"),
 }
+#: the kernels the main path (phase 3) runs
+MAIN_KERNELS = ("lsh_hash", "slot_counts", "bucket_core_stats")
+# Table 2 at its default scale: benchmarks/table2.py run(scale=0.1) on
+# blobs, with benchmarks/common.py stream_eval's protocol
+BASELINES = ("naive", "emz-static", "emz-fixed")
+BASELINE_POINTS = 20_000
+# shapes of the eps_neighbor_counts correctness sweep
+SWEEP_N = (0, 1, 63, 64, 65, 129, 1000, 4097, 20_001)
+SWEEP_D = (1, 3, 16, 54)
 
 
 def card_line() -> str:
@@ -180,7 +209,7 @@ def run_main_path(n_points: int, device: str):
     launches = ops.launch_counts()
     last["restored"] = rest
     if device != "cpu":
-        missing = [k for k, v in launches.items() if v <= 0]
+        missing = [k for k in MAIN_KERNELS if launches[k] <= 0]
         if missing:
             raise AssertionError(f"kernels never launched on the main "
                                  f"path: {missing}")
@@ -199,6 +228,79 @@ def run_main_path(n_points: int, device: str):
         "restore_labels_equal": True,
     }
     return metrics, last
+
+
+# ---------------------------------------------------------------------- #
+# baselines path
+# ---------------------------------------------------------------------- #
+def run_baselines(n_points: int, device: str):
+    """Table 2's streaming protocol through the host baselines, then the
+    exact eps-ball counts of the final points through ``ops`` on
+    ``device``; returns (metrics, the final points as float32)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import ClusterConfig, build_index, restore_index
+    from repro_torch.core import naive_dbscan
+    from repro_torch.core.metrics import (adjusted_rand_index,
+                                          normalized_mutual_info)
+    from repro_torch.data import blobs
+    from repro_torch.kernels import ops
+
+    X, y = blobs(n=n_points, d=D, n_clusters=10, cluster_std=0.25,
+                 seed=SEED)
+    cfg = ClusterConfig(d=D, k=K, t=T, eps=EPS, seed=SEED)
+    ops.reset_launch_counts()
+    out = {"points": n_points, "cut": n_points != BASELINE_POINTS,
+           "d": D, "k": K, "t": T, "eps": EPS, "batch": BATCH}
+    for backend in BASELINES:
+        index = build_index(cfg.replace(backend=backend))
+        total = 0.0
+        ids = []
+        lab = {}
+        for b in range(0, n_points, BATCH):
+            t0 = time.perf_counter()
+            ids.extend(index.insert_batch(X[b:b + BATCH]))
+            lab = index.labels(ids)
+            total += time.perf_counter() - t0
+        got = np.array([lab[i] for i in ids])
+        row = {"time_s": total, "ari": adjusted_rand_index(y, got),
+               "nmi": normalized_mutual_info(y, got)}
+        if backend != "emz-fixed":
+            rest = restore_index(index.snapshot())
+            if rest.labels() != index.labels():
+                raise AssertionError(f"{backend}: labels differ after "
+                                     "snapshot + restore")
+            row["restore_labels_equal"] = True
+        out[backend] = row
+        print(f"baselines: {backend:10} n={n_points} time={total:.3f} s "
+              f"ARI={row['ari']:.4f} NMI={row['nmi']:.4f}", flush=True)
+
+    # exact eps-ball counts of the final points on the card
+    x32 = X.astype(np.float32)
+    x = torch.from_numpy(x32).to(device)
+    counts = ops.eps_neighbor_counts(x, eps=EPS)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if device != "cpu" and launches["eps_neighbor_counts"] <= 0:
+        raise AssertionError("eps_neighbor_counts never launched on the "
+                             "baselines path")
+    err = max_abs_err(counts, ops.eps_neighbor_counts(x, eps=EPS,
+                                                      impl="ref"))
+    if err:
+        raise AssertionError(f"eps_neighbor_counts differs from its plain "
+                             f"version on the final points by {err}")
+    got = counts.cpu().numpy().astype(np.int64)
+    host = naive_dbscan.eps_neighbor_counts(X, EPS)
+    out.update({
+        "launches": launches, "eps_counts_max_abs_err": err,
+        "eps_counts_mean": float(got.mean()),
+        # f32 with float32(eps^2 + 1e-6) against float64 with eps^2 + 1e-9
+        "rows_differing_from_host_f64": int((got != host).sum()),
+        "core_flips_at_k": int(((got >= K) != (host >= K)).sum()),
+    })
+    return out, x32
 
 
 # ---------------------------------------------------------------------- #
@@ -223,7 +325,10 @@ def device_events(fn):
 
 def kernel_device_ms(fns, reps: int = 50):
     """Mean device milliseconds per launch of each kernel in ``fns``
-    (name -> call), from the profiler; None where it traced none."""
+    (name -> call), from the profiler: the mean duration of each device
+    function whose name holds the kernel's, summed over those functions
+    (``eps_neighbor_counts`` launches a norm pre-pass and the count
+    kernel); None where it traced none."""
     def run():
         for fn in fns.values():
             for _ in range(reps):
@@ -231,8 +336,12 @@ def kernel_device_ms(fns, reps: int = 50):
     _wall, evs = device_events(run)
     out = {}
     for name in fns:
-        durs = [us for ev, us in evs if f"{name}_kernel" in ev]
-        out[name] = sum(durs) / len(durs) / 1e3 if durs else None
+        by_fn = {}
+        for ev, us in evs:
+            if name in ev:
+                by_fn.setdefault(ev, []).append(us)
+        out[name] = (sum(sum(v) / len(v) for v in by_fn.values()) / 1e3
+                     if by_fn else None)
     return out
 
 
@@ -295,9 +404,10 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def check_kernels(last, launches, card: str):
+def check_kernels(last, launches, card: str, x_base):
     """Bit-exact and timed comparison of each kernel with its plain
-    version at the main path's shapes; returns the ``kernels`` list."""
+    version at its path's shapes (``x_base``: the baselines path's final
+    points); returns the ``kernels`` list."""
     import numpy as np
     import torch
 
@@ -320,18 +430,16 @@ def check_kernels(last, launches, card: str):
 
     out = []
 
-    def record(name, err, ms, plain_ms, nbytes, nops, library_ms):
+    def record(name, err, ms, plain_ms, nbytes, nops, library_ms, **extra):
         src, replaces = KERNEL_SOURCES[name]
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / SCALAR_OPS_PER_S * 1e3
+        bound_ms, bound_by = bound(nbytes, nops)
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "bytes": nbytes, "ops": nops,
-            "card": card,
+            "card": card, **extra,
         })
 
     # -- lsh_hash: reads x, eta, mixers once, writes (n, t, 2) keys; per
@@ -386,12 +494,141 @@ def check_kernels(last, launches, card: str):
                                                            k=K)})
     for k in out:
         k["device_ms"] = dev_ms[k["name"]]
+
+    # -- eps_neighbor_counts: reads n*d floats, writes n counts; the
+    #    operations are counted by eps_ops (each unordered pair once)
+    from repro_torch.data import blobs
+
+    X, _ = blobs(n=FULL_POINTS, d=D, n_clusters=10, seed=SEED)
+    at = {}
+    for tag, xs in (("", torch.from_numpy(X.astype(np.float32)).to(dev)),
+                    ("_20k", torch.from_numpy(x_base).to(dev))):
+        got = ops.eps_neighbor_counts(xs, eps=EPS)
+        err = max_abs_err(got, ops.eps_neighbor_counts(xs, eps=EPS,
+                                                       impl="ref"))
+        n_pts = xs.shape[0]
+        comp = composite_eps_counts(xs, EPS)
+        at[tag] = {
+            "n": n_pts, "err": err,
+            "ms": time_ms(lambda: ops.eps_neighbor_counts(xs, eps=EPS),
+                          reps=5, warmup=1),
+            "plain_ms": time_ms(lambda: ops.eps_neighbor_counts(
+                xs, eps=EPS, impl="ref"), reps=2, warmup=1),
+            "composite_ms": time_ms(lambda: composite_eps_counts(xs, EPS),
+                                    reps=3, warmup=1),
+            "composite_rows_differing": int((comp != got).sum()),
+            "device_ms": kernel_device_ms({
+                "eps_neighbor_counts":
+                    lambda: ops.eps_neighbor_counts(xs, eps=EPS)},
+                reps=3)["eps_neighbor_counts"],
+            "bytes": (xs.numel() + n_pts) * 4,
+            "ops": eps_ops(n_pts, D),
+            "ops_all_pairs": n_pts * n_pts * (2 * D + 4),
+        }
+        del xs, got, comp
+    sweep_err, sweep_cases = eps_sweep(dev)
+    big, small = at[""], at["_20k"]
+    record("eps_neighbor_counts", max(big["err"], small["err"], sweep_err),
+           big["ms"], big["plain_ms"], big["bytes"], big["ops"], None,
+           n=big["n"], d=D, device_ms=big["device_ms"],
+           composite_ms=big["composite_ms"],
+           composite_rows_differing=big["composite_rows_differing"],
+           n_20k=small["n"], ms_20k=small["ms"],
+           plain_ms_20k=small["plain_ms"],
+           bound_ms_20k=bound(small["bytes"], small["ops"])[0],
+           bound_ms_all_pairs=bound(big["bytes"], big["ops_all_pairs"])[0],
+           bound_ms_all_pairs_20k=bound(small["bytes"],
+                                        small["ops_all_pairs"])[0],
+           device_ms_20k=small["device_ms"],
+           composite_ms_20k=small["composite_ms"],
+           composite_rows_differing_20k=small["composite_rows_differing"],
+           sweep_cases=sweep_cases, sweep_max_abs_err=sweep_err)
+    print(f"eps_neighbor_counts: composite, not one call (blocked "
+          f"torch.matmul f32, TF32 off, compare, sum): "
+          f"{big['composite_ms']:.3f} ms at {big['n']} x {D}, "
+          f"{small['composite_ms']:.3f} ms at {small['n']} x {D}; kernel "
+          f"{big['ms']:.3f} / {small['ms']:.3f} ms  [{card}]", flush=True)
     torch.cuda.synchronize()
     bad_k = [k["name"] for k in out if k["max_abs_err"] != 0]
     if bad_k:
         raise AssertionError(f"kernels disagree with their plain "
                              f"versions: {bad_k}")
     return out
+
+
+def bound(nbytes: int, nops: int):
+    """(least milliseconds the card could take, what bounds it): bytes
+    over the memory rate against operations over the scalar rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / SCALAR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def eps_ops(n: int, d: int) -> int:
+    """Least scalar operations of the eps-ball counts of n points in d
+    dimensions. In the fixed f32 order the count matrix is symmetric bit
+    for bit (the products of dot_ij and dot_ji are the same, taken in the
+    same k order, and s_i + s_j rounds as s_j + s_i), so each unordered
+    pair, the diagonal included, is evaluated once: d multiplies and d - 1
+    adds for the dot, then add, multiply, subtract, compare, and a count
+    added to both rows."""
+    return n * (n + 1) // 2 * (2 * d + 5)
+
+
+def composite_eps_counts(x, eps: float):
+    """The eps-ball counts from several PyTorch calls (norms, a blocked
+    f32 ``torch.matmul`` with TF32 off, compare, sum) — a yardstick only:
+    no single library call computes this function, and its f32 order is
+    not the kernel's, so boundary rows may differ."""
+    import torch
+
+    from repro_torch.kernels.ref import _EPS_BLOCK_BYTES, eps_threshold
+
+    n = x.shape[0]
+    thr = eps_threshold(eps)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        s = (x * x).sum(dim=1)
+        out = torch.empty(n, dtype=torch.int32, device=x.device)
+        rows = max(1, _EPS_BLOCK_BYTES // (4 * max(n, 1)))
+        for r0 in range(0, n, rows):
+            r1 = min(r0 + rows, n)
+            d2 = s[r0:r1, None] + s[None, :] - 2.0 * (x[r0:r1] @ x.T)
+            out[r0:r1] = (d2 <= thr).sum(dim=1, dtype=torch.int32)
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def eps_sweep(dev):
+    """``eps_neighbor_counts`` against its plain version on tile-ragged
+    n and on d in SWEEP_D (d = 54 spans several shared-memory chunks),
+    with duplicated points; returns (max abs error, cases)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    err = cases = 0
+    for d in SWEEP_D:
+        for n in SWEEP_N:
+            rng = np.random.default_rng(n * 100 + d)
+            x = (rng.normal(size=(n, d)) * 0.7).astype(np.float32)
+            dup = min(3, n - n // 2)
+            x[n // 2:n // 2 + dup] = x[:dup]
+            eps = 0.35 * float(np.sqrt(d))
+            xs = torch.from_numpy(x).to(dev)
+            got = ops.eps_neighbor_counts(xs, eps=eps)
+            e = max_abs_err(got, ops.eps_neighbor_counts(xs, eps=eps,
+                                                         impl="ref"))
+            if n and int(got.min()) < 1:
+                raise AssertionError(f"eps_neighbor_counts n={n} d={d}: a "
+                                     "point does not count itself")
+            err, cases = max(err, e), cases + 1
+    torch.cuda.synchronize()
+    return err, cases
 
 
 # ---------------------------------------------------------------------- #
@@ -438,14 +675,22 @@ def main(argv=None) -> int:
     metrics["build_s"] = build_s
     print("main_path " + json.dumps(metrics), flush=True)
 
-    # 4. kernels
-    kernels = check_kernels(last, metrics["launches"], card)
-    share = sum(k["launches"] * k["ms"] for k in kernels) / 1e3 \
-        / metrics["insert_s"]
-    print(f"kernel time (launches x ms per call) / insert wall time: "
-          f"{share:.4f}  [{card}]", flush=True)
+    # 4. baselines path
+    base, x_base = run_baselines(BASELINE_POINTS, "cuda")
+    base["card"] = card
+    print("baselines " + json.dumps(base), flush=True)
 
-    # 5. where the device time goes in a few insert batches at the main
+    # 5. kernels, each with the launches of its own path
+    launches = dict(metrics["launches"])
+    launches["eps_neighbor_counts"] = \
+        base["launches"]["eps_neighbor_counts"]
+    kernels = check_kernels(last, launches, card, x_base)
+    share = sum(k["launches"] * k["ms"] for k in kernels
+                if k["name"] in MAIN_KERNELS) / 1e3 / metrics["insert_s"]
+    print(f"main-path kernel time (launches x ms per call) / insert wall "
+          f"time: {share:.4f}  [{card}]", flush=True)
+
+    # 6. where the device time goes in a few insert batches at the main
     #    path's final state (the restored index; launches already read)
     window = profile_insert_window(last["restored"])
     window["card"] = card

@@ -8,8 +8,9 @@
     index.labels()                      # {idx: label}, noise = -1
     snap = index.snapshot()             # -> restore_index(snap)
 
-Backends registered so far: ``soa`` (host) and ``soa-device`` (the CUDA
-kernels; ``build_index(cfg, device="cpu")`` runs their plain versions).
+Backends registered so far: ``soa`` (host), ``soa-device`` (the CUDA
+kernels; ``build_index(cfg, device="cpu")`` runs their plain versions),
+and the host-only baselines ``emz-static``, ``naive`` and ``emz-fixed``.
 Snapshots interchange with ``repro.api``.
 """
 
@@ -25,4 +26,4 @@ from .registry import (  # noqa: F401
     unregister_backend,
 )
 from . import backends as _backends  # noqa: F401  (populates the registry)
-from .backends import SoAIndex  # noqa: F401
+from .backends import RecomputeIndex, SoAIndex  # noqa: F401

@@ -66,7 +66,8 @@ def build_index(cfg: Union[ClusterConfig, str, None] = None, *,
     and ``build_index(d=8, ..., backend="soa")`` are all accepted.
     ``device`` picks where a device backend runs (``soa-device``: "cuda"
     by default, "cpu" for its plain kernels); a host-only backend
-    (``soa``) accepts only ``None`` or "cpu" and raises on any other.
+    (``soa``, ``emz-static``, ``naive``, ``emz-fixed``) accepts only
+    ``None`` or "cpu" and raises on any other.
     """
     if isinstance(cfg, str):
         cfg = ClusterConfig(backend=cfg, **kwargs)

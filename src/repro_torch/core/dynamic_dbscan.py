@@ -2,8 +2,8 @@
 bookkeeping of ``repro.core.dynamic_dbscan``.
 
 Only ``NOISE``, ``claim_index`` and ``check_unique_ids`` are ported so far
-— what the structure-of-arrays engine (:mod:`repro_torch.core.soa`) and
-the API need.  The dict engine ``DynamicDBSCAN`` (Euler-tour forest,
+— what the structure-of-arrays engine (:mod:`repro_torch.core.soa`), the
+static baselines and the API need.  The dict engine ``DynamicDBSCAN`` (Euler-tour forest,
 Algorithm 2) comes with a later slice of the port.
 """
 

@@ -1,8 +1,9 @@
 # Hand-written CUDA kernels for Hopper (sm_90a) replacing the Pallas TPU
-# kernels on the streaming engine's path, each with a plain PyTorch
-# version (ref.py) and a device-dispatching wrapper (ops.py):
-#   lsh_hash          - grid-LSH bucket keys (csrc/lsh_hash.cu)
-#   slot_counts       - per-batch bucket occupancy deltas (csrc/bucket_ops.cu)
-#   bucket_core_stats - Definition-4 support / core flags (csrc/bucket_ops.cu)
-# eps_neighbor_counts and flash_attention come with a later slice.
+# kernels, each with a plain PyTorch version (ref.py) and a
+# device-dispatching wrapper (ops.py):
+#   lsh_hash            - grid-LSH bucket keys (csrc/lsh_hash.cu)
+#   slot_counts         - per-batch bucket occupancy deltas (csrc/bucket_ops.cu)
+#   bucket_core_stats   - Definition-4 support / core flags (csrc/bucket_ops.cu)
+#   eps_neighbor_counts - exact DBSCAN's eps-ball counts (csrc/pairwise_dist.cu)
+# flash_attention comes with a later slice.
 from . import ops, ref  # noqa: F401

@@ -38,6 +38,7 @@ SIGNATURES: Dict[str, tuple] = {
     "lsh_hash": (_P, _P, _P, _F, _I, _I, _I, _P, _P),
     "slot_counts": (_P, _LL, _I, _P, _P),
     "bucket_core_stats": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "eps_neighbor_counts": (_P, _I, _I, _F, _P, _P, _P),
 }
 
 #: launches per kernel since the last reset — incremented by

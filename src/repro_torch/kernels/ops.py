@@ -20,6 +20,7 @@ import torch
 from . import _build
 from . import bucket_ops as _bo
 from . import lsh_hash as _lh
+from . import pairwise_dist as _pd
 from . import ref as _ref
 
 #: the kernels ops dispatches to the card, each a ``<name>_launch`` C
@@ -49,6 +50,12 @@ def bucket_core_stats(slots, sizes, *, k: int, impl: Optional[str] = None):
     if _on_card(slots, impl):
         return _bo.bucket_core_stats(slots, sizes, k=k)
     return _ref.bucket_core_stats(slots, sizes, k)
+
+
+def eps_neighbor_counts(x, *, eps: float, impl: Optional[str] = None):
+    if _on_card(x, impl):
+        return _pd.eps_neighbor_counts(x, eps=eps)
+    return _ref.eps_neighbor_counts(x, eps)
 
 
 def launch_counts() -> Dict[str, int]:

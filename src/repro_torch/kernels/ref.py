@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's kernels.
 
 Mirrors of ``repro.kernels.ref`` (``lsh_hash``, ``slot_counts``,
-``bucket_core_stats``) that run on any device.  On a CPU tensor the
+``bucket_core_stats``, ``eps_neighbor_counts``) that run on any device.  On a CPU tensor the
 wrappers in :mod:`.ops` run these; on the card they are what each CUDA
 kernel is held against, bit for bit.
 
@@ -13,8 +13,8 @@ ids.
 
 Integer arithmetic is done in int64 and folded back to int32: torch's
 ``>>`` on int32 is arithmetic, not logical, and int32 multiplication is
-not guaranteed to wrap.  ``eps_neighbor_counts`` and ``attention`` come
-with a later slice of the port.
+not guaranteed to wrap.  ``attention`` comes with a later slice of the
+port.
 """
 
 from __future__ import annotations
@@ -104,3 +104,42 @@ def bucket_core_stats(slots: torch.Tensor, sizes: torch.Tensor, k: int):
     occ = padded[torch.where(valid, s, nb)]
     supp = (valid & (occ >= k)).sum(dim=-1, dtype=torch.int32)
     return supp, (supp > 0).to(torch.int32)
+
+
+#: rows of the (rows, n) distance block :func:`eps_neighbor_counts` holds
+#: at once are chosen so that one f32 temporary stays under this many bytes
+_EPS_BLOCK_BYTES = 1 << 28
+
+
+def eps_threshold(eps: float) -> float:
+    """``float32(eps*eps + 1e-6)``: the sum taken in Python double and
+    rounded to f32 once, as JAX's weak-typed scalar does in
+    ``repro.kernels.ref`` and the Pallas kernel."""
+    return float(np.float32(eps * eps + 1e-6))
+
+
+def eps_neighbor_counts(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """|B(x_i, eps)| per point, self included: (n, d) f32 -> (n,) int32.
+
+    The arithmetic order is fixed, and the CUDA kernel follows it:
+    ``s_i = sum_k x_ik*x_ik`` and ``dot_ij = sum_k x_ik*x_jk`` summed for
+    k = 0..d-1 with every product and sum a separate f32 op (no
+    ``matmul``, ``addcmul`` or ``einsum``, which may fuse or reorder), then
+    ``d2 = (s_i + s_j) - 2*dot_ij`` and a count of ``d2 <= thr`` with
+    ``thr = eps_threshold(eps)``.  Rows go in blocks so that no temporary
+    exceeds ``_EPS_BLOCK_BYTES``."""
+    n, d = x.shape
+    thr = eps_threshold(eps)
+    s = torch.zeros(n, dtype=torch.float32, device=x.device)
+    for k in range(d):
+        s = s + x[:, k] * x[:, k]
+    out = torch.empty(n, dtype=torch.int32, device=x.device)
+    rows = max(1, _EPS_BLOCK_BYTES // (4 * max(n, 1)))
+    for r0 in range(0, n, rows):
+        r1 = min(r0 + rows, n)
+        dot = torch.zeros((r1 - r0, n), dtype=torch.float32, device=x.device)
+        for k in range(d):
+            dot.add_(x[r0:r1, k, None] * x[None, :, k])
+        d2 = (s[r0:r1, None] + s[None, :]) - 2.0 * dot
+        out[r0:r1] = (d2 <= thr).sum(dim=1, dtype=torch.int32)
+    return out

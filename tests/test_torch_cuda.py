@@ -1,6 +1,8 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
 version, and the ``soa-device`` engine on ``cuda`` against the host
-``soa`` engine.  Tolerance zero — all results are integers.
+``soa`` engine.  Tolerance zero — all results are integers (for
+``eps_neighbor_counts`` because the kernel and its plain version round
+every f32 product and sum in the same order).
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports neither JAX nor ``repro``, so it runs on a machine that has
@@ -74,7 +76,40 @@ def test_bucket_kernels_match_plain(cuda, n, t, nb):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"lsh_hash": 0, "slot_counts": 1,
-                                   "bucket_core_stats": 3}
+                                   "bucket_core_stats": 3,
+                                   "eps_neighbor_counts": 0}
+
+
+@pytest.mark.parametrize("d", [1, 3, 10, 16, 54])
+@pytest.mark.parametrize("n", [1, 63, 64, 129, 1000, 4097])
+def test_eps_neighbor_counts_matches_plain(cuda, n, d):
+    """Bit-exact against the plain version on the card and on the CPU,
+    on tile-ragged n and d (d = 54 spans several shared-memory chunks)."""
+    rng = np.random.default_rng(n * 100 + d)
+    x = (rng.normal(size=(n, d)) * 0.7).astype(np.float32)
+    dup = min(3, n - n // 2)
+    x[n // 2:n // 2 + dup] = x[:dup]  # duplicated points
+    eps = 0.35 * np.sqrt(d)
+    xc = torch.from_numpy(x).to(cuda)
+    ops.reset_launch_counts()
+    got = ops.eps_neighbor_counts(xc, eps=eps)
+    want = ops.eps_neighbor_counts(xc, eps=eps, impl="ref")
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["eps_neighbor_counts"] == 1
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    assert torch.equal(got, want)
+    assert torch.equal(want.cpu(), ops.eps_neighbor_counts(
+        torch.from_numpy(x), eps=eps))
+    assert int(got.min()) >= 1  # every point counts itself
+
+
+def test_eps_neighbor_counts_on_blobs(cuda):
+    X, _ = blobs(n=20_000, d=10, n_clusters=10, seed=0)
+    x = torch.from_numpy(X.astype(np.float32)).to(cuda)
+    got = ops.eps_neighbor_counts(x, eps=0.75)
+    assert torch.equal(got, ops.eps_neighbor_counts(x, eps=0.75,
+                                                    impl="ref"))
+    assert ops.eps_neighbor_counts(x[:0], eps=0.75).shape == (0,)
 
 
 def test_wrappers_reject_bad_arguments(cuda):
@@ -84,6 +119,11 @@ def test_wrappers_reject_bad_arguments(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ops.bucket_core_stats(s.t(), torch.zeros(3, dtype=torch.int32,
                                                  device=cuda), k=1)
+    with pytest.raises(TypeError):
+        ops.eps_neighbor_counts(torch.zeros((4, 2), dtype=torch.float64,
+                                            device=cuda), eps=1.0)
+    with pytest.raises(ValueError, match="d >= 1"):
+        ops.eps_neighbor_counts(torch.zeros((4, 0), device=cuda), eps=1.0)
     with pytest.raises(ValueError, match="shape"):
         ops.lsh_hash(torch.zeros((4, 2), device=cuda),
                      torch.zeros(3, device=cuda),
@@ -114,7 +154,7 @@ def test_soa_device_on_cuda_matches_host_soa(cuda, orphans):
         assert dev.labels() == host.labels()
     counts = ops.launch_counts()
     assert counts == {"lsh_hash": 12, "slot_counts": 12,
-                      "bucket_core_stats": 12}
+                      "bucket_core_stats": 12, "eps_neighbor_counts": 0}
     dev.check_invariants()
     for key, val in dev.snapshot()["state"].items():
         np.testing.assert_array_equal(val, host.snapshot()["state"][key])

@@ -13,6 +13,12 @@ dropped, while ``repro.kernels.ref`` wraps it onto a real slot.  The
 port drops every id outside ``[0, n)``; the sweeps below draw ids from
 ``[-pad, n + 9)``, the range on which the TPU kernels drop.
 
+``eps_neighbor_counts``: tolerance zero as well.  The port's plain
+version sums in a fixed f32 order (k = 0..d-1, every product and sum a
+separate op), and its counts equal ``repro.kernels.ref`` and the Pallas
+kernel in interpret mode on the sweeps of ``tests/test_kernels.py`` and
+on the paper's blobs at 4,000 points.
+
 The CUDA kernels are held against these plain versions on the card in
 ``tests/test_torch_cuda.py``.
 """
@@ -25,8 +31,10 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 import repro.kernels.lsh_hash as jax_lh  # noqa: E402
+import repro.kernels.pairwise_dist as jax_pd  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
+from repro_torch.data import blobs  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 LSH_SHAPES = [(64, 4, 3), (200, 16, 10), (33, 7, 5), (256, 20, 8)]
@@ -127,6 +135,58 @@ def test_out_of_range_ids_follow_the_tpu_kernel():
     np.testing.assert_array_equal(supp.numpy(), np.asarray(sk))
 
 
+# --------------------------------------------------------------------- #
+# eps_neighbor_counts
+# --------------------------------------------------------------------- #
+def _eps_inputs(n, d):
+    rng = np.random.default_rng(n * d)
+    return (rng.normal(size=(n, d)) * 0.7).astype(np.float32)
+
+
+def _assert_eps_counts_match_jax(x, eps):
+    got = ops.eps_neighbor_counts(torch.from_numpy(x), eps=eps).numpy()
+    want_ref = np.asarray(jax_ref.eps_neighbor_counts(jnp.asarray(x), eps))
+    want_pallas = np.asarray(jax_pd.eps_neighbor_counts(
+        x, eps=eps, block_m=64, block_n=64, interpret=True))
+    assert got.dtype == np.int32 and got.shape == (x.shape[0],)
+    np.testing.assert_array_equal(got, want_ref)
+    np.testing.assert_array_equal(got, want_pallas)
+
+
+@pytest.mark.parametrize("n,d", [(50, 3), (130, 8), (257, 16)])
+def test_eps_neighbor_counts_matches_jax(n, d):
+    _assert_eps_counts_match_jax(_eps_inputs(n, d), 0.8)
+
+
+def test_eps_neighbor_counts_matches_jax_on_blobs():
+    """The paper's blobs at 4,000 points and eps 0.75: ~374 neighbours a
+    point, so many pairs lie near the boundary."""
+    X, _ = blobs(n=4000, d=10, seed=0)
+    _assert_eps_counts_match_jax(X.astype(np.float32), 0.75)
+
+
+@pytest.mark.parametrize("eps", [0.3, 1.0, 2.5])
+def test_eps_neighbor_counts_match_exact_numpy(eps):
+    """Against the (x_i - x_j)^2 form of ``tests/test_kernels.py``."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(80, 5)).astype(np.float32)
+    d2 = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    exact = (d2 <= eps * eps + 1e-6).sum(-1)
+    got = ops.eps_neighbor_counts(torch.from_numpy(x), eps=eps).numpy()
+    np.testing.assert_array_equal(got, exact)
+
+
+def test_eps_neighbor_counts_row_blocks_do_not_change_counts(monkeypatch):
+    x = torch.from_numpy(_eps_inputs(301, 7))
+    whole = ref.eps_neighbor_counts(x, 0.9)
+    # 4 * 301 * 13 bytes: row blocks of 13, the last one ragged
+    monkeypatch.setattr(ref, "_EPS_BLOCK_BYTES", 4 * 301 * 13)
+    assert torch.equal(ref.eps_neighbor_counts(x, 0.9), whole)
+    assert ref.eps_threshold(0.75) == float(np.float32(0.75 * 0.75 + 1e-6))
+    empty = ref.eps_neighbor_counts(torch.zeros((0, 4)), 0.5)
+    assert empty.shape == (0,) and empty.dtype == torch.int32
+
+
 def test_cpu_dispatch_runs_plain_versions_and_counts_no_launch():
     ops.reset_launch_counts()
     x, eta, mixers = _lsh_inputs(16, 4, 3)
@@ -139,6 +199,9 @@ def test_cpu_dispatch_runs_plain_versions_and_counts_no_launch():
     assert torch.equal(
         ops.slot_counts(torch.from_numpy(s), n_slots=11),
         ref.slot_counts(torch.from_numpy(s), 11))
+    x = torch.from_numpy(_eps_inputs(40, 3))
+    assert torch.equal(ops.eps_neighbor_counts(x, eps=0.8),
+                       ops.eps_neighbor_counts(x, eps=0.8, impl="ref"))
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
     with pytest.raises(ValueError):
         ops.slot_counts(torch.from_numpy(s), n_slots=11, impl="pallas")
@@ -146,7 +209,7 @@ def test_cpu_dispatch_runs_plain_versions_and_counts_no_launch():
 
 def test_cuda_wrappers_reject_cpu_tensors():
     """The CUDA wrappers never run the plain version themselves."""
-    from repro_torch.kernels import bucket_ops, lsh_hash
+    from repro_torch.kernels import bucket_ops, lsh_hash, pairwise_dist
 
     s = torch.zeros((4, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -158,3 +221,5 @@ def test_cuda_wrappers_reject_cpu_tensors():
         lsh_hash.lsh_hash(torch.zeros((4, 2)), torch.zeros(3),
                           torch.ones((2, 3, 2), dtype=torch.int32),
                           inv_cell=1.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pairwise_dist.eps_neighbor_counts(torch.zeros((4, 2)), eps=1.0)

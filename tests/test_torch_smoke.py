@@ -1,7 +1,9 @@
 """``chip_smoke.py`` on the CPU: its main path runs end to end at a tiny
 size with the kernels' plain versions (the port's ``soa-device`` on
 ``device="cpu"`` against its host ``soa`` engine, labels and deltas
-equal), and the script itself refuses to run without a CUDA device."""
+equal), so does its baselines path (the host baselines, then the
+eps-ball counts through ``ops`` on the CPU), and the script itself
+refuses to run without a CUDA device."""
 
 import importlib.util
 from pathlib import Path
@@ -25,6 +27,46 @@ def test_main_path_runs_on_cpu():
     assert last["slots"].shape == (1000, chip_smoke.T)
     assert last["sizes"].shape == (last["n_slots"],)
     assert len(last["restored"]) == 3000 - 750
+
+
+def test_baselines_path_runs_on_cpu():
+    metrics, x = chip_smoke.run_baselines(2500, "cpu")
+    assert metrics["points"] == 2500 and metrics["cut"]
+    for backend in chip_smoke.BASELINES:
+        # the metrics round: a perfect labelling may give 1 + 2e-16
+        assert 0.5 < metrics[backend]["ari"] < 1.0 + 1e-9
+        assert 0.5 < metrics[backend]["nmi"] < 1.0 + 1e-9
+    assert metrics["naive"]["restore_labels_equal"]
+    assert metrics["emz-static"]["restore_labels_equal"]
+    # the CPU runs the plain version, which counts no launch
+    assert metrics["launches"]["eps_neighbor_counts"] == 0
+    assert metrics["eps_counts_max_abs_err"] == 0
+    assert metrics["eps_counts_mean"] > chip_smoke.K
+    assert x.shape == (2500, chip_smoke.D) and x.dtype.name == "float32"
+
+
+def test_eps_composite_and_bound_on_cpu():
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.normal(size=(300, 10)) * 0.4).astype(
+        np.float32))
+    comp = chip_smoke.composite_eps_counts(x, chip_smoke.EPS)
+    plain = ops.eps_neighbor_counts(x, eps=chip_smoke.EPS)
+    # another f32 order: only boundary rows may differ
+    assert comp.dtype == torch.int32
+    assert int((comp != plain).sum()) <= 3
+    # each unordered pair once: n(n+1)/2 pairs of 2d+5 operations
+    assert chip_smoke.eps_ops(3, 10) == 6 * 25
+    ms, by = chip_smoke.bound(4 * 200_000 * 11,
+                              chip_smoke.eps_ops(200_000, chip_smoke.D))
+    assert by == "operations" and 14.8 < ms < 15.1
+    # the count over all n^2 ordered pairs, reported beside it
+    ms, by = chip_smoke.bound(4 * 200_000 * 11,
+                              200_000 ** 2 * (2 * chip_smoke.D + 4))
+    assert by == "operations" and 28 < ms < 29.5
 
 
 def test_script_refuses_without_cuda(capsys):
