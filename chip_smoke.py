@@ -32,28 +32,51 @@ Phases, each of which raises on failure (exit code != 0):
              where they differ from the host float64 counts of
              ``core.naive_dbscan`` and the core flags that flip at k=10
              are reported (two definitions, not a check).
-5. kernels — each kernel at its path's shapes, held bit-exact against
-             its plain PyTorch version on the card, then timed with CUDA
-             events against the plain version and, where one exists, a
-             library call; the profiler gives each kernel's device time
-             per launch.  The bucket kernels run at the main path's last
-             insert batch and slot count (out-of-range ids included);
-             ``eps_neighbor_counts`` at the main path's points (200,000
-             x 10) and at 20,000 x 10, beside a blocked ``torch.matmul``
-             composite (TF32 off; several calls, so no library column),
-             and over a sweep of tile-ragged n and d in {1, 3, 16, 54}.
-6. profile — device busy share of five more insert batches at the
+5. lm      — the dense-LM serving path on gemma3-27b at its published
+             widths (d_model 5376, 32 query / 16 kv heads of 128, d_ff
+             21504, vocab 262,144, window 1024 on 5 of every 6 layers),
+             depth cut to 6 layers, f32 weights from a seeded
+             ``torch.Generator`` on the card: a bf16 ``forward`` of 4,096
+             tokens must launch ``flash_attention`` 6 times and give
+             finite logits (wall ms, peak memory); the kernel against its
+             plain version at the model's shapes, window and global, in
+             f32 (atol = rtol = 2e-5) and bf16 (the plain version of the
+             f32 upcast rounded to bf16, one ulp), and over a sweep of
+             the reference tests' cases, decode rows, head_dim 16-256
+             and ragged lengths; f32 prefill logits (kernel) against
+             teacher-forced ``decode_step`` logits (plain torch) over
+             1,100 tokens, TF32 off, atol = rtol = 2e-4; the
+             ``ServingEngine`` at batch 4, kv_len 2048, 8 requests of
+             8-64 prompt tokens and 16 new tokens with request
+             clustering on ``soa-device`` (tokens/s, step p50/p99).
+             Then the kernel timed at the model's shapes in bf16 beside
+             its plain version, ``scaled_dot_product_attention`` and the
+             bound, and the top device operations of a prefill and of
+             a decode step.
+6. kernels — each clustering kernel at its path's shapes, held
+             bit-exact against its plain PyTorch version on the card,
+             then timed with CUDA events against the plain version and,
+             where one exists, a library call; the profiler gives each
+             kernel's device time per launch.  The bucket kernels run at
+             the main path's last insert batch and slot count
+             (out-of-range ids included); ``eps_neighbor_counts`` at the
+             main path's points (200,000 x 10) and at 20,000 x 10, beside
+             a blocked ``torch.matmul`` composite (TF32 off; several
+             calls, so no library column), and over a sweep of
+             tile-ragged n and d in {1, 3, 16, 54}.
+7. profile — device busy share of five more insert batches at the
              main path's final state (torch.profiler).
 
-The line before the last is one JSON object with a ``kernels`` list; the
-last line is ``{"ok": true, "device": {...}}``.  ``--points`` cuts the
-main stream only (the cut is printed); d, k, t, eps and the batch never
-change.
+The line before the last is one JSON object with a ``kernels`` list (all
+five kernels); the last line is ``{"ok": true, "device": {...}}``.
+``--points`` cuts the main stream only (the cut is printed); d, k, t,
+eps and the batch never change.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -80,6 +103,8 @@ KERNEL_SOURCES = {
                           "src/repro/kernels/bucket_ops.py:63"),
     "eps_neighbor_counts": ("src/repro_torch/kernels/csrc/pairwise_dist.cu",
                             "src/repro/kernels/pairwise_dist.py:60"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:129"),
 }
 #: the kernels the main path (phase 3) runs
 MAIN_KERNELS = ("lsh_hash", "slot_counts", "bucket_core_stats")
@@ -90,6 +115,32 @@ BASELINE_POINTS = 20_000
 # shapes of the eps_neighbor_counts correctness sweep
 SWEEP_N = (0, 1, 63, 64, 65, 129, 1000, 4097, 20_001)
 SWEEP_D = (1, 3, 16, 54)
+# LM phase: gemma3-27b at its published widths, depth cut from 62 layers
+# to one 5:1 local:global period (62 layers of f32 weights, ~102 GB, do
+# not fit one 80 GB card; 6 layers are 5.30 B parameters, 21.2 GB)
+LM_ARCH, LM_LAYERS = "gemma3-27b", 6
+PREFILL_TOKENS = 4096          # past the local layers' 1024-token window
+CHECK_TOKENS = 1100            # f32 prefill vs decode, past the window
+SERVE_BATCH, SERVE_KV, SERVE_REQUESTS = 4, 2048, 8
+SERVE_PROMPT_MIN, SERVE_PROMPT_MAX, SERVE_NEW_TOKENS = 8, 64, 16
+LM_TOL = 2e-4                  # tests/test_arch_smoke.py decode vs prefill
+FLASH_F32_TOL = 2e-5           # tests/test_kernels.py flash vs ref, f32
+FLASH_BF16_TOL = 2.0 ** -7     # one bf16 ulp, relative
+BF16_TC_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
+F32_CORE_FLOPS = 67e12         # H100 SXM f32 outside the tensor cores
+# (b, hq, hkv, sq, skv, dh, causal, window) of the flash_attention sweep:
+# tests/test_kernels.py's cases, decode rows (sq = 1, q_offset = skv - 1),
+# head_dim 16 / 96 / 128 / 256, ragged lengths, the model's widths
+FLASH_SWEEP = (
+    (1, 2, 2, 64, 64, 32, True, None), (2, 4, 2, 128, 128, 64, True, None),
+    (1, 4, 1, 96, 96, 32, True, None), (1, 2, 2, 64, 64, 32, True, 16),
+    (2, 2, 2, 1, 128, 32, True, None), (1, 2, 2, 64, 64, 32, False, None),
+    (2, 8, 2, 1, 512, 64, True, None), (1, 4, 2, 100, 100, 16, True, 32),
+    (1, 4, 2, 70, 70, 96, True, None), (1, 4, 2, 300, 300, 128, True, 100),
+    (2, 4, 2, 33, 161, 128, True, 64), (1, 2, 1, 200, 200, 256, True, None),
+    (1, 32, 16, 1, 4096, 128, True, 1024),
+    (1, 32, 16, 1100, 1100, 128, True, 1024),
+)
 
 
 def card_line() -> str:
@@ -632,6 +683,460 @@ def eps_sweep(dev):
 
 
 # ---------------------------------------------------------------------- #
+# LM path: gemma3-27b at full width through the flash-attention kernel
+# ---------------------------------------------------------------------- #
+def lm_sizes(device: str) -> dict:
+    """The LM phase's sizes: on the card gemma3-27b's published widths
+    with depth cut to one 5:1 local:global period; on the CPU (tests) its
+    smoke config at the same depth and proportionally short sequences."""
+    if device == "cpu":
+        return {"smoke": True, "prefill": 80, "check": 48, "serve_kv": 96,
+                "prompt": (8, 40), "new": 4, "shape_seq": 80,
+                "time_reps": 1}
+    return {"smoke": False, "prefill": PREFILL_TOKENS,
+            "check": CHECK_TOKENS, "serve_kv": SERVE_KV,
+            "prompt": (SERVE_PROMPT_MIN, SERVE_PROMPT_MAX),
+            "new": SERVE_NEW_TOKENS, "shape_seq": PREFILL_TOKENS,
+            "time_reps": 3}
+
+
+def lm_config(smoke: bool, dtype: str = "bfloat16"):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_ARCH)
+    if smoke:
+        cfg = cfg.smoke()
+    return dataclasses.replace(cfg, n_layers=LM_LAYERS, dtype=dtype)
+
+
+def _sync(device: str) -> None:
+    import torch
+
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def unmasked_pairs(sq: int, skv: int, window, q_offset: int = 0) -> int:
+    """(query, key) pairs a causal attention with ``window`` (None = full)
+    computes: query i at position i + q_offset sees keys
+    [max(0, p - window + 1), min(p, skv - 1)]."""
+    total = 0
+    for i in range(sq):
+        p = i + q_offset
+        lo = 0 if window is None else max(0, p - window + 1)
+        hi = min(p, skv - 1)
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def attention_bound(b, hq, hkv, sq, skv, dh, window, elem_bytes):
+    """(bound ms, bound_by, f32-core bound ms, flops, bytes) of one causal
+    attention: 4 dh flops per unmasked pair and head (q.k and p.v) over
+    the bf16 tensor-core peak, against one read of q, k, v and one write
+    of the output over the memory rate."""
+    flops = 4 * dh * unmasked_pairs(sq, skv, window) * b * hq
+    nbytes = (2 * b * hq * sq * dh + 2 * b * hkv * skv * dh) * elem_bytes
+    t_ops = flops / BF16_TC_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops / F32_CORE_FLOPS * 1e3, flops, nbytes)
+
+
+def _flash_err(got, want, tol: float) -> float:
+    """max |got - want| in f32; raises past atol = rtol = ``tol``."""
+    import torch
+
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    if not torch.allclose(g, w, atol=tol, rtol=tol):
+        raise AssertionError(f"flash_attention differs from its plain "
+                             f"version: max abs err {err} (tol {tol})")
+    return err
+
+
+def flash_check(q, k, v, window, q_offset=0, causal=True):
+    """The kernel against its plain version on the same inputs: in f32 at
+    2e-5; in bf16 against the plain version of the f32 upcast rounded to
+    bf16, within one bf16 ulp (2^-7).  Returns (f32 err, bf16 err)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    kw = {"causal": causal, "window": window, "q_offset": q_offset}
+    q, k, v = q.float(), k.float(), v.float()
+    e32 = _flash_err(ops.attention(q, k, v, **kw),
+                     ops.attention(q, k, v, impl="ref", **kw), FLASH_F32_TOL)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    want = ops.attention(qb.float(), kb.float(), vb.float(), impl="ref",
+                         **kw).to(torch.bfloat16)
+    e16 = _flash_err(ops.attention(qb, kb, vb, **kw), want, FLASH_BF16_TOL)
+    return e32, e16
+
+
+def flash_sweep(device: str):
+    """The kernel against its plain version over the reference tests'
+    cases plus decode rows, head_dim 16 / 96 / 128 / 256 and ragged
+    lengths; returns (max f32 err, max bf16 err, cases)."""
+    import torch
+
+    e32 = e16 = 0.0
+    for b, hq, hkv, sq, skv, dh, causal, window in FLASH_SWEEP:
+        g = torch.Generator(device=device).manual_seed(sq * 1000 + dh)
+        q = torch.randn((b, hq, sq, dh), generator=g, device=device)
+        k = torch.randn((b, hkv, skv, dh), generator=g, device=device)
+        v = torch.randn((b, hkv, skv, dh), generator=g, device=device)
+        a, c = flash_check(q, k, v, window, causal=causal,
+                           q_offset=skv - sq if causal else 0)
+        e32, e16 = max(e32, a), max(e16, c)
+    return e32, e16, len(FLASH_SWEEP)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for val in tree.values():
+            yield from _leaves(val)
+    elif isinstance(tree, list):
+        for val in tree:
+            yield from _leaves(val)
+    else:
+        yield tree
+
+
+def _percentile(xs, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs), q)) if xs else None
+
+
+def run_lm_path(device: str):
+    """Drive the dense-LM serving path of ``LM_ARCH`` on ``device``:
+    prefill through ``forward`` (launch count), the kernel against its
+    plain version at the model's shapes and over a sweep, f32 prefill
+    against teacher-forced decode, and the serving engine with request
+    clustering; returns (metrics, what the timing phase needs)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.obs import make_obs
+    from repro_torch.serving import Request, ServingEngine
+
+    sz = lm_sizes(device)
+    cfg = lm_config(sz["smoke"])
+    on_card = device != "cpu"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    _sync(device)
+    n_params = sum(t.numel() for t in _leaves(params))
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.resolved_head_dim, "window": cfg.window,
+           "vocab": cfg.padded_vocab, "dtype": cfg.dtype,
+           "param_dtype": cfg.param_dtype, "params": n_params,
+           "init_s": time.perf_counter() - t0}
+    rng = np.random.default_rng(SEED)
+
+    # 1. prefill: the path whose launches count
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (1, sz["prefill"]))).to(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        logits = model.forward(params, {"tokens": toks})
+        _sync(device)
+        launches = ops.launch_counts()
+        if on_card and launches["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"flash_attention launched "
+                                 f"{launches['flash_attention']} times in "
+                                 f"one forward, expected {cfg.n_layers}")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("prefill logits are not finite")
+        if tuple(logits.shape) != (1, sz["prefill"], cfg.padded_vocab):
+            raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+        del logits
+        walls = []
+        for _ in range(sz["time_reps"]):
+            t0 = time.perf_counter()
+            model.forward(params, {"tokens": toks})
+            _sync(device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+    out.update({"prefill_tokens": sz["prefill"], "launches": launches,
+                "flash_launches_per_forward": launches["flash_attention"],
+                "prefill_ms": walls, "prefill_logits_finite": True,
+                "prefill_tokens_per_s": sz["prefill"] / (min(walls) / 1e3)})
+    if on_card:
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"lm: {cfg.name} {cfg.n_layers} layers (depth cut from 62), "
+          f"{n_params / 1e9:.3f} B params {cfg.param_dtype}; prefill "
+          f"{sz['prefill']} tokens {cfg.dtype}: {min(walls):.2f} ms, "
+          f"flash launches {launches['flash_attention']}", flush=True)
+
+    # 2. the kernel against its plain version at the model's shapes
+    s = sz["shape_seq"]
+    dh, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    g = torch.Generator(device=device).manual_seed(SEED)
+    q = torch.randn((1, hq, s, dh), generator=g, device=device)
+    k = torch.randn((1, hkv, s, dh), generator=g, device=device)
+    v = torch.randn((1, hkv, s, dh), generator=g, device=device)
+    shapes = {}
+    for tag, window in (("window", cfg.window), ("global", None)):
+        e32, e16 = flash_check(q, k, v, window)
+        shapes[tag] = {"window": window, "err_f32": e32, "err_bf16": e16}
+    sw32, sw16, cases = flash_sweep(device)
+    out["flash_check"] = {"shape": [1, hq, s, dh], "kv_heads": hkv,
+                          **shapes, "sweep_cases": cases,
+                          "sweep_err_f32": sw32, "sweep_err_bf16": sw16,
+                          "tol_f32": FLASH_F32_TOL,
+                          "tol_bf16": FLASH_BF16_TOL}
+    print("lm: flash_attention vs plain " + json.dumps(out["flash_check"]),
+          flush=True)
+
+    # 3. f32 prefill (kernel) against teacher-forced decode (plain torch)
+    cfg32 = lm_config(sz["smoke"], dtype="float32")
+    m32 = build_model(cfg32, device=device)
+    n = sz["check"]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).to(
+        device)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        full = m32.forward(params, {"tokens": toks})[0]
+        _sync(device)
+        f32_launches = ops.launch_counts()["flash_attention"]
+        caches = m32.decode_init(1, n)
+        dec = torch.empty_like(full)
+        t0 = time.perf_counter()
+        for t in range(n):
+            step, caches = m32.decode_step(params, caches, toks[:, t:t + 1],
+                                           t)
+            dec[t] = step[0]
+        _sync(device)
+        dec_s = time.perf_counter() - t0
+        err = float((dec - full).abs().max())
+        ok = bool(torch.allclose(dec, full, atol=LM_TOL, rtol=LM_TOL))
+    del full, dec, caches
+    out["prefill_vs_decode"] = {"tokens": n, "window": cfg.window,
+                                "max_abs_err": err, "tol": LM_TOL,
+                                "flash_launches": f32_launches,
+                                "decode_steps_s": dec_s,
+                                "decode_ms_per_step_b1_f32": dec_s / n * 1e3}
+    print(f"lm: f32 prefill vs teacher-forced decode over {n} tokens: max "
+          f"abs err {err:.3e} (tol {LM_TOL})", flush=True)
+    if not ok:
+        raise AssertionError(f"prefill and decode logits differ by {err}")
+    if on_card and f32_launches != cfg.n_layers:
+        raise AssertionError(f"f32 forward launched flash_attention "
+                             f"{f32_launches} times")
+
+    # 4. serving with request clustering on the card
+    obs = make_obs(True)
+    backend = "soa-device"
+    eng = ServingEngine(model, params, batch=SERVE_BATCH,
+                        kv_len=sz["serve_kv"], cluster_requests=True,
+                        cluster_backend=backend, obs=obs)
+    centres = rng.normal(size=(2, 8)) * 3
+    lo, hi = sz["prompt"]
+    prompts = [rng.integers(1, cfg.vocab_size,
+                            size=int(rng.integers(lo, hi + 1)))
+               for _ in range(SERVE_REQUESTS)]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for rid, prompt in enumerate(prompts):
+        eng.submit(Request(
+            rid=rid, prompt=prompt, max_new_tokens=sz["new"],
+            embedding=centres[rid % 2] + 0.05 * rng.normal(size=8)))
+    steps = []
+    while eng.queue or any(sl is not None for sl in eng.slots):
+        ts = time.perf_counter()
+        eng.step()
+        steps.append((time.perf_counter() - ts) * 1e6)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    serve_launches = ops.launch_counts()
+    done = eng.done
+    eng.close()
+    gen = sum(len(r.out_tokens) for r in done.values())
+    hist = obs.histogram("serving.step_us")
+    if sorted(done) != list(range(SERVE_REQUESTS)) or \
+            gen != SERVE_REQUESTS * sz["new"]:
+        raise AssertionError(f"served {sorted(done)} with {gen} tokens")
+    if on_card:
+        missing = [kn for kn in MAIN_KERNELS if serve_launches[kn] <= 0]
+        if missing:
+            raise AssertionError(f"request clustering launched no {missing}")
+    out["serving"] = {
+        "batch": SERVE_BATCH, "kv_len": sz["serve_kv"],
+        "requests": len(done), "generated_tokens": gen,
+        "prompt_tokens": sum(len(p) for p in prompts), "wall_s": wall,
+        "tokens_per_s": gen / wall, "steps": len(steps),
+        "step_us_p50": _percentile(steps, 50),
+        "step_us_p99": _percentile(steps, 99),
+        "hist_step_us_p50": hist.percentile(50),
+        "hist_step_us_p99": hist.percentile(99),
+        "clusters": sorted({r.cluster for r in done.values()}),
+        "cluster_backend": backend, "launches": serve_launches,
+    }
+    print("lm: serving " + json.dumps(out["serving"]), flush=True)
+    return out, {"model": model, "params": params, "q": q, "k": k, "v": v,
+                 "window": cfg.window, "prefill": sz["prefill"],
+                 "serve_kv": sz["serve_kv"]}
+
+
+def sdpa_backend(fn) -> str:
+    """The device kernel that took longest in ``fn`` (a PyTorch attention
+    call), which names the backend it ran: ``flash`` (pytorch_flash),
+    ``efficient`` (fmha_cutlass), ``cudnn`` or the math path's GEMMs."""
+    _wall, evs = device_events(fn)
+    return max(evs, key=lambda e: e[1])[0][:120] if evs else ""
+
+
+def time_flash(ctx, launches: int, check: dict, card: str) -> dict:
+    """``flash_attention`` timed at the model's shapes in bf16 (the main
+    path's dtype), window and global, beside its plain version, SDPA and
+    the bound; returns its row of the ``kernels`` list, per launch
+    averaged over one forward (five window layers, one global)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    q32, k32, v32 = ctx["q"], ctx["k"], ctx["v"]
+    q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
+    b, hq, s, dh = q.shape
+    hkv = k.shape[1]
+    window = ctx["window"]
+    cases = {}
+    for tag, win in (("window", window), ("global", None)):
+        kw = {"causal": True, "window": win}
+        pos = torch.arange(s, device=q.device)
+        mask = (pos[:, None] >= pos[None, :])
+        if win is not None:
+            mask &= (pos[:, None] - pos[None, :]) < win
+
+        def sdpa(win=win, mask=mask):
+            if win is None:
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        got = ops.attention(q, k, v, **kw)
+        bound_ms, bound_by, f32_bound_ms, flops, nbytes = attention_bound(
+            b, hq, hkv, s, s, dh, win, 2)
+        cases[tag] = {
+            "window": win,
+            "ms": time_ms(lambda: ops.attention(q, k, v, **kw), reps=10,
+                          warmup=2),
+            "ms_f32": time_ms(lambda: ops.attention(q32, k32, v32, **kw),
+                              reps=5, warmup=1),
+            "plain_ms": time_ms(lambda: ops.attention(q, k, v, impl="ref",
+                                                      **kw),
+                                reps=3, warmup=1),
+            "library_ms": time_ms(sdpa, reps=10, warmup=2),
+            "library_kernel": sdpa_backend(sdpa),
+            "library_max_abs_diff": float((sdpa().float()
+                                           - got.float()).abs().max()),
+            "device_ms": kernel_device_ms(
+                {"flash_attention": lambda: ops.attention(q, k, v, **kw)},
+                reps=3)["flash_attention"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_f32_cores": f32_bound_ms, "flops": flops,
+            "bytes": nbytes,
+        }
+        del got
+    # one forward runs the window case on 5 layers and the global on 1
+    w = {"window": LM_LAYERS - 1, "global": 1}
+
+    def per_launch(key):
+        return sum(w[t] * cases[t][key] for t in w) / LM_LAYERS
+
+    bound_ms = per_launch("bound_ms")
+    row = {
+        "name": "flash_attention", "route": "cuda",
+        "source": KERNEL_SOURCES["flash_attention"][0],
+        "replaces": KERNEL_SOURCES["flash_attention"][1],
+        "launches": launches,
+        "max_abs_err": max(check["window"]["err_f32"],
+                           check["global"]["err_f32"],
+                           check["sweep_err_f32"]),
+        "max_abs_err_bf16": max(check["window"]["err_bf16"],
+                                check["global"]["err_bf16"],
+                                check["sweep_err_bf16"]),
+        "ms": per_launch("ms"), "plain_ms": per_launch("plain_ms"),
+        "bound_ms": bound_ms,
+        "bound_by": cases["global"]["bound_by"],
+        "library_ms": per_launch("library_ms"),
+        "device_ms": per_launch("device_ms"),
+        "bound_ms_f32_cores": per_launch("bound_ms_f32_cores"),
+        "dtype": "bfloat16", "shape": [b, hq, s, dh], "kv_heads": hkv,
+        "per_launch": "mean over one forward: 5 window layers, 1 global",
+        "cases": cases, "card": card,
+    }
+    print(f"flash_attention at {[b, hq, s, dh]} bf16 (window {window} / "
+          f"global): kernel {cases['window']['ms']:.3f} / "
+          f"{cases['global']['ms']:.3f} ms, SDPA "
+          f"{cases['window']['library_ms']:.3f} / "
+          f"{cases['global']['library_ms']:.3f} ms "
+          f"({cases['window']['library_kernel'][:60]} / "
+          f"{cases['global']['library_kernel'][:60]}), bound "
+          f"{cases['window']['bound_ms']:.4f} / "
+          f"{cases['global']['bound_ms']:.4f} ms  [{card}]", flush=True)
+    return row
+
+
+def _top_ops(evs, wall: float, n: int = 12) -> dict:
+    by = {}
+    for name, us in evs:
+        tot, cnt = by.get(name, (0.0, 0))
+        by[name] = (tot + us, cnt + 1)
+    busy = sum(t for t, _c in by.values())
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:n]
+    flash = sum(t for name, (t, _c) in by.items()
+                if "flash_attention" in name)
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / 1e6 / wall,
+            "flash_share_of_device": flash / busy if busy else 0.0,
+            "top": [{"name": name[:90], "ms": t / 1e3, "calls": c,
+                     "share": t / busy} for name, (t, c) in top]}
+
+
+def profile_lm(ctx, device: str) -> dict:
+    """Top device operations of one bf16 prefill forward at the phase's
+    length and of one fused decode step of the serving batch."""
+    import numpy as np
+    import torch
+
+    model, params = ctx["model"], ctx["params"]
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (1, ctx["prefill"]))).to(device)
+    caches = model.decode_init(SERVE_BATCH, ctx["serve_kv"])
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (SERVE_BATCH, 1))).to(device)
+    pos = torch.arange(SERVE_BATCH, device=device, dtype=torch.int32) * 16
+    act = torch.ones(SERVE_BATCH, dtype=torch.bool, device=device)
+    with torch.inference_mode():
+        model.forward(params, {"tokens": toks})       # warm
+        model.decode_step(params, caches, tok, pos, act)
+        wall, evs = device_events(
+            lambda: model.forward(params, {"tokens": toks}))
+        pre = _top_ops(evs, wall)
+        wall, evs = device_events(
+            lambda: model.decode_step(params, caches, tok, pos, act))
+        dec = _top_ops(evs, wall)
+    return {"prefill": {"tokens": ctx["prefill"], **pre},
+            "decode_step": {"batch": SERVE_BATCH, "kv_len": ctx["serve_kv"],
+                            **dec}}
+
+
+# ---------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--points", type=int, default=FULL_POINTS,
@@ -668,8 +1173,8 @@ def main(argv=None) -> int:
 
     # 3. main path
     if args.points != FULL_POINTS:
-        print(f"main: CUT — {args.points} points instead of {FULL_POINTS}",
-              flush=True)
+        print(f"main: CUT — {args.points} points instead of "
+              f"{FULL_POINTS}", flush=True)
     metrics, last = run_main_path(args.points, "cuda")
     metrics["card"] = card
     metrics["build_s"] = build_s
@@ -680,17 +1185,34 @@ def main(argv=None) -> int:
     base["card"] = card
     print("baselines " + json.dumps(base), flush=True)
 
-    # 5. kernels, each with the launches of its own path
+    # 5. LM path: gemma3-27b prefill through the flash kernel, the kernel
+    #    against its plain version, prefill vs decode, serving; then the
+    #    kernel's timing and where a prefill / decode step spends its time
+    lm, ctx = run_lm_path("cuda")
+    lm["card"] = card
+    print("lm_path " + json.dumps(lm), flush=True)
+    flash = time_flash(ctx, lm["flash_launches_per_forward"],
+                       lm["flash_check"], card)
+    lm_prof = profile_lm(ctx, "cuda")
+    lm_prof["card"] = card
+    lm_prof["flash_share_of_prefill_wall"] = (
+        flash["launches"] * flash["ms"] / min(lm["prefill_ms"]))
+    print("profile_lm " + json.dumps(lm_prof), flush=True)
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. kernels, each with the launches of its own path
     launches = dict(metrics["launches"])
     launches["eps_neighbor_counts"] = \
         base["launches"]["eps_neighbor_counts"]
-    kernels = check_kernels(last, launches, card, x_base)
+    kernels = check_kernels(last, launches, card, x_base) + [flash]
     share = sum(k["launches"] * k["ms"] for k in kernels
                 if k["name"] in MAIN_KERNELS) / 1e3 / metrics["insert_s"]
     print(f"main-path kernel time (launches x ms per call) / insert wall "
           f"time: {share:.4f}  [{card}]", flush=True)
 
-    # 6. where the device time goes in a few insert batches at the main
+    # 7. where the device time goes in a few insert batches at the main
     #    path's final state (the restored index; launches already read)
     window = profile_insert_window(last["restored"])
     window["card"] = card

@@ -5,5 +5,6 @@
 #   slot_counts         - per-batch bucket occupancy deltas (csrc/bucket_ops.cu)
 #   bucket_core_stats   - Definition-4 support / core flags (csrc/bucket_ops.cu)
 #   eps_neighbor_counts - exact DBSCAN's eps-ball counts (csrc/pairwise_dist.cu)
-# flash_attention comes with a later slice.
+#   attention           - GQA flash attention of the LM prefill
+#                         (csrc/flash_attention.cu)
 from . import ops, ref  # noqa: F401

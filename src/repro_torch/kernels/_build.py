@@ -39,6 +39,10 @@ SIGNATURES: Dict[str, tuple] = {
     "slot_counts": (_P, _LL, _I, _P, _P),
     "bucket_core_stats": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "eps_neighbor_counts": (_P, _I, _I, _F, _P, _P, _P),
+    # q, k, v, out, b, hq, hkv, sq, skv, dh, causal, has_window, window,
+    # q_offset, scale, dtype (0 f32, 1 bf16), stream
+    "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _F, _I, _P),
 }
 
 #: launches per kernel since the last reset — incremented by

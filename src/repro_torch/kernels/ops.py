@@ -19,6 +19,7 @@ import torch
 
 from . import _build
 from . import bucket_ops as _bo
+from . import flash_attention as _fa
 from . import lsh_hash as _lh
 from . import pairwise_dist as _pd
 from . import ref as _ref
@@ -56,6 +57,17 @@ def eps_neighbor_counts(x, *, eps: float, impl: Optional[str] = None):
     if _on_card(x, impl):
         return _pd.eps_neighbor_counts(x, eps=eps)
     return _ref.eps_neighbor_counts(x, eps)
+
+
+def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0, scale: Optional[float] = None,
+              impl: Optional[str] = None):
+    """GQA attention, q (b, hq, sq, dh), k and v (b, hkv, skv, dh)."""
+    if _on_card(q, impl):
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, scale=scale)
+    return _ref.attention(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset, scale=scale)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the port's kernels.
 
 Mirrors of ``repro.kernels.ref`` (``lsh_hash``, ``slot_counts``,
-``bucket_core_stats``, ``eps_neighbor_counts``) that run on any device.  On a CPU tensor the
+``bucket_core_stats``, ``eps_neighbor_counts``, ``attention``) that run
+on any device.  On a CPU tensor the
 wrappers in :mod:`.ops` run these; on the card they are what each CUDA
-kernel is held against, bit for bit.
+kernel is held against: bit for bit, and ``attention`` within the
+reference tests' tolerances (its kernel sums in another f32 order).
 
 One deliberate difference from ``repro.kernels.ref``: an id outside
 ``[0, n)`` contributes nothing to ``slot_counts`` or
@@ -13,11 +15,12 @@ ids.
 
 Integer arithmetic is done in int64 and folded back to int32: torch's
 ``>>`` on int32 is arithmetic, not logical, and int32 multiplication is
-not guaranteed to wrap.  ``attention`` comes with a later slice of the
-port.
+not guaranteed to wrap.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -143,3 +146,45 @@ def eps_neighbor_counts(x: torch.Tensor, eps: float) -> torch.Tensor:
         d2 = (s[r0:r1, None] + s[None, :]) - 2.0 * dot
         out[r0:r1] = (d2 <= thr).sum(dim=1, dtype=torch.int32)
     return out
+
+
+#: the masked score of ``attention`` (``repro.kernels.ref``: ``-1e30``)
+NEG_INF = -1e30
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """Reference GQA attention, as ``repro.kernels.ref.attention``.
+
+    q: (b, hq, sq, dh); k, v: (b, hkv, skv, dh) with hq % hkv == 0; query
+    head h reads kv head ``h // (hq // hkv)``.  ``q_offset``: absolute
+    position of q[0] (for decode: skv - sq).  ``window``: keys with
+    ``q_pos - k_pos >= window`` are masked; None = full.
+
+    The logits einsum runs in the inputs' dtype and is then cast to f32
+    (for bf16 inputs the logits are rounded to bf16 first, as in the
+    reference); softmax is f32; the probabilities are cast back to v's
+    dtype for the second einsum.  A row whose keys are all masked gets
+    the mean of v, as in the reference (the kernel writes 0 there).
+    """
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    kk = k.repeat_interleave(group, dim=1)
+    vv = v.repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, kk).to(torch.float32) \
+        * scale
+    q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= (q_pos - k_pos) < window
+    logits = logits.masked_fill(~mask[None, None], NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(vv.dtype), vv)

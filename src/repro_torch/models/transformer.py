@@ -1,0 +1,157 @@
+"""Decoder-only LM, dense family.
+
+Mirror of ``repro.models.transformer`` for ``family="dense"``.  The
+reference scans a stacked layer tree under ``jax.checkpoint``; here the
+layers are a list of per-layer dicts and both the full-sequence forward
+and decode are Python loops over it, with per-layer (theta, window) from
+:func:`_layer_meta_py` — so Gemma-3's 5:1 local:global pattern gives
+each layer its own window and RoPE theta, and window layers get
+window-sized decode caches.  Each layer's full-sequence attention
+launches the flash-attention kernel once (on the card).
+
+The moe, ssm, hybrid, vlm and audio families raise
+``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 11), as do
+``lm_loss`` and training.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from ..configs import unported_family
+from . import attention as A
+from . import layers as L
+
+
+def _check_family(cfg) -> None:
+    if cfg.family != "dense":
+        raise unported_family(cfg.family)
+
+
+# --------------------------------------------------------------------- #
+# init
+# --------------------------------------------------------------------- #
+def _init_layer(gen: torch.Generator, cfg, dtype) -> Dict[str, Any]:
+    zeros = {"w": ((cfg.d_model,), 0.0)}
+    return {
+        "attn": A.init_attention(gen, cfg, dtype),
+        "ln_attn": L.declare(gen, zeros, dtype),
+        "mlp": L.init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype),
+        "ln_mlp": L.declare(gen, zeros, dtype),
+    }
+
+
+def _layer_meta_py(cfg, i: int) -> Dict[str, Any]:
+    """Layer ``i``'s RoPE theta and window (None = full attention)."""
+    theta, window = cfg.rope_theta, cfg.window
+    if cfg.local_global_pattern is not None:
+        loc, glob = cfg.local_global_pattern
+        is_global = (i % (loc + glob)) == (loc + glob - 1)
+        window = None if is_global else cfg.window
+        if is_global and cfg.rope_theta_global is not None:
+            theta = cfg.rope_theta_global
+    return {"theta": theta, "window": window}
+
+
+def layer_metadata(cfg) -> Dict[str, List[Any]]:
+    """Per-layer ``theta`` and ``window`` lists (the reference's arrays,
+    with its ``-1`` as None)."""
+    metas = [_layer_meta_py(cfg, i) for i in range(cfg.n_layers)]
+    return {"theta": [m["theta"] for m in metas],
+            "window": [m["window"] for m in metas]}
+
+
+def init_lm(cfg, gen: torch.Generator) -> Dict[str, Any]:
+    """Parameters in ``cfg.param_dtype`` on ``gen``'s device: the
+    reference's shapes and init stds, drawn from ``gen``."""
+    _check_family(cfg)
+    dtype = L.dtype_of(cfg.param_dtype)
+    params: Dict[str, Any] = {
+        "embed": L.init_embedding(gen, cfg.padded_vocab, cfg.d_model, dtype),
+        "layers": [_init_layer(gen, cfg, dtype)
+                   for _ in range(cfg.n_layers)],
+        "ln_f": L.declare(gen, {"w": ((cfg.d_model,), 0.0)}, dtype),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = L.init_lm_head(gen, cfg.d_model, cfg.padded_vocab,
+                                        dtype)
+    return params
+
+
+# --------------------------------------------------------------------- #
+# full-sequence forward (prefill)
+# --------------------------------------------------------------------- #
+def _layer_fwd(lp, x, cfg, meta, compute_dtype):
+    h = L.rms_norm(x, lp["ln_attn"]["w"], cfg.norm_eps)
+    x = x + A.attention_block(lp["attn"], h, cfg, theta=meta["theta"],
+                              window=meta["window"],
+                              compute_dtype=compute_dtype)
+    h = L.rms_norm(x, lp["ln_mlp"]["w"], cfg.norm_eps)
+    return x + L.swiglu(lp["mlp"], h, compute_dtype)
+
+
+def lm_forward(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (b, s) int -> logits (b, s, padded_vocab) in ``cfg.dtype``."""
+    _check_family(cfg)
+    compute_dtype = L.dtype_of(cfg.dtype)
+    x = L.embed(params["embed"], tokens, compute_dtype)
+    for i, lp in enumerate(params["layers"]):
+        x = _layer_fwd(lp, x, cfg, _layer_meta_py(cfg, i), compute_dtype)
+    x = L.rms_norm(x, params["ln_f"]["w"], cfg.norm_eps)
+    return _head(params, cfg, x, compute_dtype)
+
+
+def _head(params, cfg, x, compute_dtype):
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["table"].to(compute_dtype).T
+    return L.lm_head(params["head"], x, compute_dtype)
+
+
+# --------------------------------------------------------------------- #
+# decode: per-layer loop with per-layer cache shapes
+# --------------------------------------------------------------------- #
+def init_decode_state(cfg, batch: int, kv_len: int,
+                      device) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer caches ``{"k", "v"}`` of (batch, hkv, S_i, dh) in
+    ``cfg.dtype``; window layers get ``S_i = min(window, kv_len)``."""
+    _check_family(cfg)
+    dtype = L.dtype_of(cfg.dtype)
+    Hkv, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    caches = []
+    for i in range(cfg.n_layers):
+        window = _layer_meta_py(cfg, i)["window"]
+        S_i = kv_len if window is None else min(window, kv_len)
+        shape = (batch, Hkv, S_i, Dh)
+        caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)})
+    return caches
+
+
+def lm_decode_step(params, cfg, caches, token: torch.Tensor, pos,
+                   active: Optional[torch.Tensor] = None):
+    """token: (b, 1) int; pos: scalar or (b,) int; active: optional (b,)
+    bool (continuous batching) -> (logits (b, vp), new caches)."""
+    _check_family(cfg)
+    compute_dtype = L.dtype_of(cfg.dtype)
+    x = L.embed(params["embed"], token, compute_dtype)
+    new_caches = []
+    for i, lp in enumerate(params["layers"]):
+        meta = _layer_meta_py(cfg, i)
+        c = dict(caches[i])
+        h = L.rms_norm(x, lp["ln_attn"]["w"], cfg.norm_eps)
+        windowed = (meta["window"] is not None
+                    and c["k"].shape[2] <= meta["window"])
+        y, c["k"], c["v"] = A.decode_attention_block(
+            lp["attn"], h, c["k"], c["v"], pos, cfg,
+            theta=meta["theta"], window=meta["window"],
+            compute_dtype=compute_dtype, windowed_cache=windowed,
+            active=active)
+        x = x + y
+        h = L.rms_norm(x, lp["ln_mlp"]["w"], cfg.norm_eps)
+        x = x + L.swiglu(lp["mlp"], h, compute_dtype)
+        new_caches.append(c)
+    x = L.rms_norm(x, params["ln_f"]["w"], cfg.norm_eps)
+    logits = _head(params, cfg, x, compute_dtype)[:, 0]
+    return logits, new_caches

@@ -1,8 +1,13 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version, and the ``soa-device`` engine on ``cuda`` against the host
-``soa`` engine.  Tolerance zero — all results are integers (for
+version, the ``soa-device`` engine on ``cuda`` against the host ``soa``
+engine, and the dense LM's prefill (through the flash-attention kernel)
+against its decode.  Tolerance zero for the integer kernels (for
 ``eps_neighbor_counts`` because the kernel and its plain version round
-every f32 product and sum in the same order).
+every f32 product and sum in the same order).  ``flash_attention`` sums
+in another f32 order than its plain version: atol = rtol = 2e-5 in
+float32 (``tests/test_kernels.py``'s tolerance); in bfloat16 it is held
+against the plain version run on the f32 upcast of the same inputs and
+rounded to bf16, within one bf16 ulp (atol = rtol = 2^-7).
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports neither JAX nor ``repro``, so it runs on a machine that has
@@ -77,7 +82,8 @@ def test_bucket_kernels_match_plain(cuda, n, t, nb):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"lsh_hash": 0, "slot_counts": 1,
                                    "bucket_core_stats": 3,
-                                   "eps_neighbor_counts": 0}
+                                   "eps_neighbor_counts": 0,
+                                   "flash_attention": 0}
 
 
 @pytest.mark.parametrize("d", [1, 3, 10, 16, 54])
@@ -154,7 +160,107 @@ def test_soa_device_on_cuda_matches_host_soa(cuda, orphans):
         assert dev.labels() == host.labels()
     counts = ops.launch_counts()
     assert counts == {"lsh_hash": 12, "slot_counts": 12,
-                      "bucket_core_stats": 12, "eps_neighbor_counts": 0}
+                      "bucket_core_stats": 12, "eps_neighbor_counts": 0,
+                      "flash_attention": 0}
     dev.check_invariants()
     for key, val in dev.snapshot()["state"].items():
         np.testing.assert_array_equal(val, host.snapshot()["state"][key])
+
+
+# (b, hq, hkv, sq, skv, dh, causal, window, q_offset): tests/test_kernels.py's
+# cases, decode rows, head_dim 16 / 96 / 128 / 256, ragged lengths, windows
+# narrower than a tile and wider than the sequence
+FLASH_CASES = [
+    (1, 2, 2, 64, 64, 32, True, None, 0),
+    (2, 4, 2, 128, 128, 64, True, None, 0),
+    (1, 4, 1, 96, 96, 32, True, None, 0),
+    (1, 2, 2, 64, 64, 32, True, 16, 0),
+    (2, 2, 2, 1, 128, 32, True, None, 127),
+    (1, 2, 2, 64, 64, 32, False, None, 0),
+    (2, 8, 2, 1, 512, 64, True, None, 511),
+    (1, 4, 2, 100, 100, 16, True, 32, 0),
+    (1, 4, 2, 70, 70, 96, True, None, 0),
+    (1, 4, 2, 300, 300, 128, True, 100, 0),
+    (2, 4, 2, 33, 161, 128, True, 64, 128),
+    (1, 2, 1, 200, 200, 256, True, None, 0),
+    (1, 2, 1, 130, 130, 200, False, 40, 0),
+    (1, 32, 16, 1100, 1100, 128, True, 1024, 0),
+]
+
+
+def _flash_inputs(case, dtype, dev):
+    b, hq, hkv, sq, skv, dh = case[:6]
+    rng = np.random.default_rng(hq * sq + skv + dh)
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .to(dev).to(dtype)
+            for shape in ((b, hq, sq, dh), (b, hkv, skv, dh),
+                          (b, hkv, skv, dh))]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_attention_matches_plain_f32(cuda, case):
+    *_, causal, window, q_off = case
+    q, k, v = _flash_inputs(case, torch.float32, cuda)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops.reset_launch_counts()
+    got = ops.attention(q, k, v, causal=causal, window=window, q_offset=q_off)
+    want = ops.attention(q, k, v, causal=causal, window=window,
+                         q_offset=q_off, impl="ref")
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_attention_matches_plain_bf16(cuda, case):
+    *_, causal, window, q_off = case
+    q, k, v = _flash_inputs(case, torch.bfloat16, cuda)
+    got = ops.attention(q, k, v, causal=causal, window=window, q_offset=q_off)
+    want = ops.attention(q.float(), k.float(), v.float(), causal=causal,
+                         window=window, q_offset=q_off, impl="ref")
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.to(torch.bfloat16).float(),
+                               atol=2 ** -7, rtol=2 ** -7)
+
+
+def test_flash_attention_rejects_bad_arguments(cuda):
+    q = torch.zeros((1, 4, 8, 16), device=cuda)
+    k = torch.zeros((1, 3, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.attention(q, k, k)
+    with pytest.raises(TypeError):
+        ops.attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        big = torch.zeros((1, 1, 4, 300), device=cuda)
+        ops.attention(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.attention(q.transpose(2, 3), q, q)
+
+
+def test_lm_prefill_matches_decode_on_card(cuda):
+    """gemma3-27b's smoke config cut to 6 layers at float32: prefill logits
+    (six flash-attention launches) equal teacher-forced decode logits
+    (plain torch) past the 32-token window."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("gemma3-27b").smoke(), n_layers=6,
+                              dtype="float32")
+    m = build_model(cfg)
+    p = m.init(3)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 80))).to(cuda)
+    ops.reset_launch_counts()
+    full = m.forward(p, {"tokens": toks})
+    assert ops.launch_counts()["flash_attention"] == 6
+    caches = m.decode_init(2, 80)
+    outs = []
+    for t in range(80):
+        logits, caches = m.decode_step(p, caches, toks[:, t:t + 1], t)
+        outs.append(logits)
+    torch.testing.assert_close(torch.stack(outs, 1), full, atol=2e-4,
+                               rtol=2e-4)

@@ -2,8 +2,11 @@
 size with the kernels' plain versions (the port's ``soa-device`` on
 ``device="cpu"`` against its host ``soa`` engine, labels and deltas
 equal), so does its baselines path (the host baselines, then the
-eps-ball counts through ``ops`` on the CPU), and the script itself
-refuses to run without a CUDA device."""
+eps-ball counts through ``ops`` on the CPU), so does its LM path
+(gemma3-27b's smoke config at the phase's depth: prefill, the attention
+checks, prefill vs decode, clustered serving), its attention bound
+counts the unmasked pairs, and the script itself refuses to run without
+a CUDA device."""
 
 import importlib.util
 from pathlib import Path
@@ -67,6 +70,39 @@ def test_eps_composite_and_bound_on_cpu():
     ms, by = chip_smoke.bound(4 * 200_000 * 11,
                               200_000 ** 2 * (2 * chip_smoke.D + 4))
     assert by == "operations" and 28 < ms < 29.5
+
+
+def test_lm_path_runs_on_cpu():
+    out, ctx = chip_smoke.run_lm_path("cpu")
+    assert out["arch"] == "gemma3-27b" and out["n_layers"] == 6
+    assert out["window"] == 32 and out["prefill_logits_finite"]
+    # the CPU runs the plain attention, which counts no launch
+    assert out["flash_launches_per_forward"] == 0
+    check = out["flash_check"]
+    assert check["sweep_cases"] == len(chip_smoke.FLASH_SWEEP)
+    assert check["window"]["err_f32"] <= chip_smoke.FLASH_F32_TOL
+    assert out["prefill_vs_decode"]["max_abs_err"] <= chip_smoke.LM_TOL
+    serving = out["serving"]
+    assert serving["requests"] == chip_smoke.SERVE_REQUESTS
+    assert serving["generated_tokens"] == chip_smoke.SERVE_REQUESTS * 4
+    assert serving["clusters"] == [0, 1]
+    assert ctx["q"].shape == (1, 4, 80, 16)
+
+
+def test_attention_bound_counts_unmasked_pairs():
+    assert chip_smoke.unmasked_pairs(4, 4, None) == 10
+    assert chip_smoke.unmasked_pairs(4, 4, 2) == 7
+    assert chip_smoke.unmasked_pairs(1, 8, None, q_offset=7) == 8
+    assert chip_smoke.unmasked_pairs(4096, 4096, None) == 4096 * 4097 // 2
+    ms, by, f32_ms, flops, nbytes = chip_smoke.attention_bound(
+        1, 32, 16, 4096, 4096, 128, None, 2)
+    assert flops == 4 * 128 * 32 * 4096 * 4097 // 2
+    assert nbytes == (2 * 32 + 2 * 16) * 4096 * 128 * 2
+    assert by == "operations" and 0.138 < ms < 0.140
+    assert 2.0 < f32_ms < 2.1
+    ms, by, *_ = chip_smoke.attention_bound(1, 32, 16, 4096, 4096, 128,
+                                            1024, 2)
+    assert by == "operations" and 0.060 < ms < 0.061
 
 
 def test_script_refuses_without_cuda(capsys):
