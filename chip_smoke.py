@@ -9,7 +9,10 @@ Phases, each of which raises on failure (exit code != 0):
 1. device  — print the card (``nvidia-smi`` name and power limit, torch's
              device name); no CUDA device is a failure.
 2. build   — compile the kernel library from ``src/repro_torch/kernels/
-             csrc/*.cu`` with nvcc for sm_90a and print the seconds.
+             csrc/*.cu`` with nvcc for sm_90a and print the seconds, each
+             kernel's registers and spills (``-Xptxas -v``) and the
+             ``HGMMA`` (wgmma) instructions in the SASS of the bf16
+             flash kernel (``cuobjdump -sass``); a count of 0 fails.
 3. main    — the ``soa-device`` streaming engine through the public API:
              the paper's blobs set (n=200,000, d=10, 10 clusters) with
              k=10, t=10, eps=0.75, inserted in batches of 1000 with deltas
@@ -37,22 +40,25 @@ Phases, each of which raises on failure (exit code != 0):
              21504, vocab 262,144, window 1024 on 5 of every 6 layers),
              depth cut to 6 layers, f32 weights from a seeded
              ``torch.Generator`` on the card: a bf16 ``forward`` of 4,096
-             tokens must launch ``flash_attention`` 6 times and give
+             tokens must launch ``flash_attention`` 6 times, all on its
+             tensor-core route (``flash_attention_sm90``), and give
              finite logits (wall ms, peak memory); the kernel against its
              plain version at the model's shapes, window and global, in
-             f32 (atol = rtol = 2e-5) and bf16 (the plain version of the
-             f32 upcast rounded to bf16, one ulp), and over a sweep of
-             the reference tests' cases, decode rows, head_dim 16-256
-             and ragged lengths; f32 prefill logits (kernel) against
-             teacher-forced ``decode_step`` logits (plain torch) over
-             1,100 tokens, TF32 off, atol = rtol = 2e-4; the
+             f32 (CUDA-core route, atol = rtol = 2e-5) and bf16
+             (tensor-core route, against the plain version of the f32
+             upcast rounded to bf16, one ulp), and over a sweep of the
+             reference tests' cases, decode rows, head_dim 16-256 (36:
+             padded to 40) and ragged lengths; f32 prefill logits
+             (kernel) against teacher-forced ``decode_step`` logits
+             (plain torch) over 1,100 tokens, TF32 off, atol = rtol =
+             2e-4; the
              ``ServingEngine`` at batch 4, kv_len 2048, 8 requests of
              8-64 prompt tokens and 16 new tokens with request
              clustering on ``soa-device`` (tokens/s, step p50/p99).
-             Then the kernel timed at the model's shapes in bf16 beside
-             its plain version, ``scaled_dot_product_attention`` and the
-             bound, and the top device operations of a prefill and of
-             a decode step.
+             Then the kernel timed at the model's shapes in bf16 (and
+             its f32 route, ``ms_f32``) beside its plain version,
+             ``scaled_dot_product_attention`` and the bound, and the top
+             device operations of a prefill and of a decode step.
 6. kernels — each clustering kernel at its path's shapes, held
              bit-exact against its plain PyTorch version on the card,
              then timed with CUDA events against the plain version and,
@@ -103,9 +109,13 @@ KERNEL_SOURCES = {
                           "src/repro/kernels/bucket_ops.py:63"),
     "eps_neighbor_counts": ("src/repro_torch/kernels/csrc/pairwise_dist.cu",
                             "src/repro/kernels/pairwise_dist.py:60"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+    # the bf16 route (tensor cores), which the main path takes
+    "flash_attention": ("src/repro_torch/kernels/csrc/"
+                        "flash_attention_sm90.cu",
                         "src/repro/kernels/flash_attention.py:129"),
 }
+#: the f32 route of flash_attention (CUDA cores), timed as ``ms_f32``
+FLASH_F32_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 #: the kernels the main path (phase 3) runs
 MAIN_KERNELS = ("lsh_hash", "slot_counts", "bucket_core_stats")
 # Table 2 at its default scale: benchmarks/table2.py run(scale=0.1) on
@@ -130,7 +140,8 @@ BF16_TC_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
 F32_CORE_FLOPS = 67e12         # H100 SXM f32 outside the tensor cores
 # (b, hq, hkv, sq, skv, dh, causal, window) of the flash_attention sweep:
 # tests/test_kernels.py's cases, decode rows (sq = 1, q_offset = skv - 1),
-# head_dim 16 / 96 / 128 / 256, ragged lengths, the model's widths
+# head_dim 16 / 36 (padded to 40 on the bf16 route) / 96 / 128 / 256,
+# ragged lengths, the model's widths
 FLASH_SWEEP = (
     (1, 2, 2, 64, 64, 32, True, None), (2, 4, 2, 128, 128, 64, True, None),
     (1, 4, 1, 96, 96, 32, True, None), (1, 2, 2, 64, 64, 32, True, 16),
@@ -140,6 +151,7 @@ FLASH_SWEEP = (
     (2, 4, 2, 33, 161, 128, True, 64), (1, 2, 1, 200, 200, 256, True, None),
     (1, 32, 16, 1, 4096, 128, True, 1024),
     (1, 32, 16, 1100, 1100, 128, True, 1024),
+    (1, 4, 2, 77, 77, 36, True, None),
 )
 
 
@@ -149,6 +161,75 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash_attention_sm90_kernel<128>`` from an Itanium-mangled
+    kernel name, where each identifier follows its length in digits."""
+    import re
+
+    end = mangled.find("_kernel") + len("_kernel")
+    if end < len("_kernel"):
+        return mangled
+    for start in range(end - len("_kernel"), 0, -1):
+        n = str(end - start)
+        if mangled[start - len(n):start] == n and not \
+                mangled[start].isdigit():
+            t = re.match(r"ILi(\d+)E", mangled[end:])
+            return mangled[start:end] + (f"<{t.group(1)}>" if t else "")
+    return mangled
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of every kernel from ``-Xptxas -v``."""
+    import re
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = _kernel_name(m.group(1))
+            out[cur] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            out[cur].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+def hgmma_counts(sass: str) -> dict:
+    """``HGMMA`` (wgmma) instructions per kernel in ``cuobjdump -sass``
+    output."""
+    out, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = _kernel_name(line.split("Function :")[1].strip())
+            out[cur] = 0
+        elif cur and "HGMMA" in line:
+            out[cur] += 1
+    return out
+
+
+def build_report() -> dict:
+    """The built library's ptxas registers / spills per kernel and the
+    HGMMA count of each bf16 flash kernel; raises when the bf16 route
+    holds no HGMMA."""
+    from repro_torch.kernels import _build
+
+    sass = subprocess.run(
+        [_build.cuda_tool("cuobjdump"), "-sass", str(_build.library_path())],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    hgmma = {k: n for k, n in hgmma_counts(sass).items()
+             if "flash_attention_sm90" in k}
+    if not hgmma or min(hgmma.values()) == 0:
+        raise AssertionError(f"no HGMMA in the bf16 flash kernel's SASS: "
+                             f"{hgmma}")
+    return {"ptxas": ptxas_report(_build.build_log()), "hgmma": hgmma}
 
 
 # ---------------------------------------------------------------------- #
@@ -852,10 +933,15 @@ def run_lm_path(device: str):
         logits = model.forward(params, {"tokens": toks})
         _sync(device)
         launches = ops.launch_counts()
+        tc_launches = ops.entry_launch_counts()["flash_attention_sm90"]
         if on_card and launches["flash_attention"] != cfg.n_layers:
             raise AssertionError(f"flash_attention launched "
                                  f"{launches['flash_attention']} times in "
                                  f"one forward, expected {cfg.n_layers}")
+        if on_card and tc_launches != cfg.n_layers:
+            raise AssertionError(f"the bf16 prefill took the tensor-core "
+                                 f"route {tc_launches} times, expected "
+                                 f"{cfg.n_layers}")
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError("prefill logits are not finite")
         if tuple(logits.shape) != (1, sz["prefill"], cfg.padded_vocab):
@@ -869,6 +955,7 @@ def run_lm_path(device: str):
             walls.append((time.perf_counter() - t0) * 1e3)
     out.update({"prefill_tokens": sz["prefill"], "launches": launches,
                 "flash_launches_per_forward": launches["flash_attention"],
+                "flash_tensor_core_launches_per_forward": tc_launches,
                 "prefill_ms": walls, "prefill_logits_finite": True,
                 "prefill_tokens_per_s": sz["prefill"] / (min(walls) / 1e3)})
     if on_card:
@@ -876,7 +963,8 @@ def run_lm_path(device: str):
     print(f"lm: {cfg.name} {cfg.n_layers} layers (depth cut from 62), "
           f"{n_params / 1e9:.3f} B params {cfg.param_dtype}; prefill "
           f"{sz['prefill']} tokens {cfg.dtype}: {min(walls):.2f} ms, "
-          f"flash launches {launches['flash_attention']}", flush=True)
+          f"flash launches {launches['flash_attention']} (tensor-core "
+          f"route {tc_launches})", flush=True)
 
     # 2. the kernel against its plain version at the model's shapes
     s = sz["shape_seq"]
@@ -908,7 +996,7 @@ def run_lm_path(device: str):
         ops.reset_launch_counts()
         full = m32.forward(params, {"tokens": toks})[0]
         _sync(device)
-        f32_launches = ops.launch_counts()["flash_attention"]
+        f32_launches = ops.entry_launch_counts()["flash_attention"]
         caches = m32.decode_init(1, n)
         dec = torch.empty_like(full)
         t0 = time.perf_counter()
@@ -931,8 +1019,8 @@ def run_lm_path(device: str):
     if not ok:
         raise AssertionError(f"prefill and decode logits differ by {err}")
     if on_card and f32_launches != cfg.n_layers:
-        raise AssertionError(f"f32 forward launched flash_attention "
-                             f"{f32_launches} times")
+        raise AssertionError(f"f32 forward took flash_attention's f32 "
+                             f"route {f32_launches} times")
 
     # 4. serving with request clustering on the card
     obs = make_obs(True)
@@ -996,11 +1084,13 @@ def sdpa_backend(fn) -> str:
     return max(evs, key=lambda e: e[1])[0][:120] if evs else ""
 
 
-def time_flash(ctx, launches: int, check: dict, card: str) -> dict:
+def time_flash(ctx, launches: int, check: dict, card: str,
+               build: dict) -> dict:
     """``flash_attention`` timed at the model's shapes in bf16 (the main
-    path's dtype), window and global, beside its plain version, SDPA and
-    the bound; returns its row of the ``kernels`` list, per launch
-    averaged over one forward (five window layers, one global)."""
+    path's dtype and the tensor-core route), window and global, beside
+    its f32 route (``ms_f32``), its plain version, SDPA and the bound;
+    returns its row of the ``kernels`` list, per launch averaged over
+    one forward (five window layers, one global)."""
     import torch
     import torch.nn.functional as F
 
@@ -1045,6 +1135,10 @@ def time_flash(ctx, launches: int, check: dict, card: str) -> dict:
             "device_ms": kernel_device_ms(
                 {"flash_attention": lambda: ops.attention(q, k, v, **kw)},
                 reps=3)["flash_attention"],
+            "device_ms_f32": kernel_device_ms(
+                {"flash_attention": lambda: ops.attention(q32, k32, v32,
+                                                          **kw)},
+                reps=2)["flash_attention"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_ms_f32_cores": f32_bound_ms, "flops": flops,
             "bytes": nbytes,
@@ -1060,27 +1154,39 @@ def time_flash(ctx, launches: int, check: dict, card: str) -> dict:
     row = {
         "name": "flash_attention", "route": "cuda",
         "source": KERNEL_SOURCES["flash_attention"][0],
+        "source_f32": FLASH_F32_SOURCE,
         "replaces": KERNEL_SOURCES["flash_attention"][1],
         "launches": launches,
-        "max_abs_err": max(check["window"]["err_f32"],
-                           check["global"]["err_f32"],
-                           check["sweep_err_f32"]),
-        "max_abs_err_bf16": max(check["window"]["err_bf16"],
-                                check["global"]["err_bf16"],
-                                check["sweep_err_bf16"]),
+        # the bf16 route's error (one ulp: atol = rtol = 2^-7), then the
+        # f32 route's (2e-5)
+        "max_abs_err": max(check["window"]["err_bf16"],
+                           check["global"]["err_bf16"],
+                           check["sweep_err_bf16"]),
+        "tol": FLASH_BF16_TOL,
+        "max_abs_err_f32": max(check["window"]["err_f32"],
+                               check["global"]["err_f32"],
+                               check["sweep_err_f32"]),
+        "tol_f32": FLASH_F32_TOL,
         "ms": per_launch("ms"), "plain_ms": per_launch("plain_ms"),
         "bound_ms": bound_ms,
         "bound_by": cases["global"]["bound_by"],
         "library_ms": per_launch("library_ms"),
         "device_ms": per_launch("device_ms"),
+        "ms_f32": per_launch("ms_f32"),
+        "device_ms_f32": per_launch("device_ms_f32"),
         "bound_ms_f32_cores": per_launch("bound_ms_f32_cores"),
+        "hgmma": build["hgmma"],
+        "ptxas": {k: v for k, v in build["ptxas"].items()
+                  if "flash_attention" in k},
         "dtype": "bfloat16", "shape": [b, hq, s, dh], "kv_heads": hkv,
         "per_launch": "mean over one forward: 5 window layers, 1 global",
         "cases": cases, "card": card,
     }
     print(f"flash_attention at {[b, hq, s, dh]} bf16 (window {window} / "
-          f"global): kernel {cases['window']['ms']:.3f} / "
-          f"{cases['global']['ms']:.3f} ms, SDPA "
+          f"global): kernel {cases['window']['ms']:.4f} / "
+          f"{cases['global']['ms']:.4f} ms (f32 route "
+          f"{cases['window']['ms_f32']:.3f} / "
+          f"{cases['global']['ms_f32']:.3f} ms), SDPA "
           f"{cases['window']['library_ms']:.3f} / "
           f"{cases['global']['library_ms']:.3f} ms "
           f"({cases['window']['library_kernel'][:60]} / "
@@ -1170,6 +1276,9 @@ def main(argv=None) -> int:
     build_s = ops.ensure_built()
     print(f"build: {build_s:.2f} s nvcc (load {time.perf_counter() - t0:.2f}"
           f" s) from src/repro_torch/kernels/csrc", flush=True)
+    build = build_report()
+    print("build: ptxas -v " + json.dumps(build["ptxas"]), flush=True)
+    print("build: HGMMA in SASS " + json.dumps(build["hgmma"]), flush=True)
 
     # 3. main path
     if args.points != FULL_POINTS:
@@ -1178,6 +1287,7 @@ def main(argv=None) -> int:
     metrics, last = run_main_path(args.points, "cuda")
     metrics["card"] = card
     metrics["build_s"] = build_s
+    metrics["build"] = build
     print("main_path " + json.dumps(metrics), flush=True)
 
     # 4. baselines path
@@ -1192,7 +1302,7 @@ def main(argv=None) -> int:
     lm["card"] = card
     print("lm_path " + json.dumps(lm), flush=True)
     flash = time_flash(ctx, lm["flash_launches_per_forward"],
-                       lm["flash_check"], card)
+                       lm["flash_check"], card, build)
     lm_prof = profile_lm(ctx, "cuda")
     lm_prof["card"] = card
     lm_prof["flash_share_of_prefill_wall"] = (

@@ -10,7 +10,8 @@ returns ``cudaGetLastError()`` after its launch, which :func:`launch`
 turns into an exception.
 
 The build lands in ``kernels/build/`` beside this file (listed in
-``.gitignore``); nothing is built when the package is imported.
+``.gitignore``), with nvcc's ``-Xptxas -v`` report (registers, spills)
+beside the library; nothing is built when the package is imported.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Any, Dict, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -40,14 +41,23 @@ SIGNATURES: Dict[str, tuple] = {
     "bucket_core_stats": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "eps_neighbor_counts": (_P, _I, _I, _F, _P, _P, _P),
     # q, k, v, out, b, hq, hkv, sq, skv, dh, causal, has_window, window,
-    # q_offset, scale, dtype (0 f32, 1 bf16), stream
+    # q_offset, scale, stream: the f32 route (CUDA cores) ...
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _F, _I, _P),
+                        _I, _F, _P),
+    # ... and the bf16 route (wgmma and TMA)
+    "flash_attention_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _F, _P),
 }
+#: entry points that are a route of another kernel, counted under it
+ROUTE_OF: Dict[str, str] = {"flash_attention_sm90": "flash_attention"}
+#: the kernels, each counted once whichever entry point launched it
+KERNELS = tuple(name for name in SIGNATURES if name not in ROUTE_OF)
 
 #: launches per kernel since the last reset — incremented by
 #: :func:`launch` and nowhere else
-LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+#: launches per C entry point (which route of a kernel ran)
+ENTRY_LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -58,15 +68,16 @@ _entry: Dict[str, Any] = {}
 build_seconds = 0.0
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    cands = [str(Path(home) / "bin" / "nvcc")] if home else []
-    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    cands = [str(Path(home) / "bin" / name)] if home else []
+    cands += [shutil.which(name) or "", f"/usr/local/cuda/bin/{name}"]
     for c in cands:
         if c and Path(c).is_file():
             return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the CUDA kernels cannot be built")
+    raise RuntimeError(f"{name} not found (set CUDA_HOME or put it on "
+                       "PATH); the CUDA kernels cannot be built")
 
 
 def _sources() -> list:
@@ -74,6 +85,13 @@ def _sources() -> list:
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     return srcs
+
+
+def build_log() -> str:
+    """nvcc's output for the current library (``-Xptxas -v``: registers,
+    shared memory and spills of every kernel), kept beside it."""
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def library_path() -> Path:
@@ -85,7 +103,7 @@ def library_path() -> Path:
 
 
 def _compile(out: Path) -> None:
-    nvcc = _nvcc()
+    nvcc = cuda_tool("nvcc")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
@@ -94,13 +112,15 @@ def _compile(out: Path) -> None:
             procs.append((src, obj, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        errors = []
+        errors, logs = [], []
         for src, _obj, p in procs:
-            log, _ = p.communicate()
+            log = p.communicate()[0].decode(errors="replace")
+            logs.append(f"== {src.name}\n{log}")
             if p.returncode:
-                errors.append(f"{src.name}:\n{log.decode(errors='replace')}")
+                errors.append(f"{src.name}:\n{log}")
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        out.with_suffix(".log").write_text("\n".join(logs))
         part = Path(tmp) / out.name
         subprocess.run([nvcc, *NVCC_FLAGS, "-shared",
                         *[str(o) for _s, o, _p in procs], "-o", str(part)],
@@ -141,9 +161,11 @@ def launch(name: str, *args) -> None:
     if err:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error "
                            f"{err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[ROUTE_OF.get(name, name)] += 1
+    ENTRY_LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ENTRY_LAUNCHES):
+        for name in counts:
+            counts[name] = 0

@@ -1,5 +1,9 @@
-// GQA flash attention for Hopper (sm_90a): online softmax over key tiles
-// with causal and sliding-window masks, f32 scores and accumulators.
+// GQA flash attention for Hopper (sm_90a), the f32 route: online softmax
+// over key tiles with causal and sliding-window masks, f32 scores and
+// accumulators on the CUDA cores.  It serves every f32 ops.attention call
+// on the card; bf16 goes to the tensor-core kernel in
+// flash_attention_sm90.cu.  A bf16 or TF32 tensor-core product cannot
+// hold the f32 function's 2e-5 tolerance, so this route keeps f32 FMAs.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::
 // flash_attention (body _kernel).  For query row i of head h (q_pos =
@@ -8,29 +12,27 @@
 //   mask = j < skv, and q_pos >= j when causal, and q_pos - j < window
 //          when a window is set; a masked score is -1e30 (not -inf)
 //   running (m, l, acc) per row in f32, p re-masked to 0, and
-//   out_i = acc / l (l == 0 gives 0), written in q's dtype.
+//   out_i = acc / l (l == 0 gives 0).
 // The plain version is repro_torch/kernels/ref.py::attention; the two sum
 // in different f32 orders, so they agree to the reference tests'
 // tolerances, not bit for bit.
 //
 // Bound: operations.  Per unmasked (query, key) pair and head the kernel
 // needs 2 dh multiply-adds (q.k and p.v), 4 dh flops, against one read
-// of q, k, v and one write of the output.  This first kernel runs them on
-// the CUDA cores in f32 (67 TFLOP/s on an H100 SXM), not on the tensor
-// cores (989 TFLOP/s bf16 dense): wgmma, TMA and bf16 MMA are work for
-// the PR that redesigns it.
+// of q, k, v and one write of the output, here on the CUDA cores in f32
+// (67 TFLOP/s on an H100 SXM).
 //
 // Design (simple and right first):
 //   * one block of 256 threads per (b*hq, 64-row query tile); the query
-//     tile is staged once into shared memory as f32 and stays there;
+//     tile is staged once into shared memory and stays there;
 //   * the block walks 64-key tiles of its kv head; tiles that are wholly
 //     masked (above the causal diagonal, or before the window of every
 //     row of the tile) are skipped, which changes no output: with a
 //     window of 1024 at 4,096 tokens a local layer reads ~17 tiles a
 //     query tile instead of up to 64;
-//   * K and then V of a tile go through one shared-memory buffer as f32,
-//     rows padded to a multiple of 4 floats + 4 so that float4 reads of
-//     16 consecutive rows hit distinct banks;
+//   * K and then V of a tile go through one shared-memory buffer, rows
+//     padded to a multiple of 4 floats + 4 so that float4 reads of 16
+//     consecutive rows hit distinct banks;
 //   * thread (ty, tx) of a 16 x 16 grid owns query rows ty + 16a (a < 4):
 //     for S = Q K^T it owns keys tx + 16b (b < 4), 16 scores in
 //     registers; the 16 threads of a row are one half-warp, so the row
@@ -43,7 +45,6 @@
 //     query and key lengths are masked (zero rows in shared memory,
 //     mask on the key position, rows >= sq never written).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -56,19 +57,10 @@ constexpr int THREADS = 256;  // 16 x 16
 constexpr int PLD = BK + 1;   // row stride of the p tile
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// rows [r0, r0 + 64) of a (n_rows, dh) matrix -> dst[64][DHP + 4] as f32,
-// zero beyond n_rows and dh
-template <typename T, int DHP>
-__device__ __forceinline__ void stage(const T* __restrict__ src, int r0,
+// rows [r0, r0 + 64) of a (n_rows, dh) matrix -> dst[64][DHP + 4], zero
+// beyond n_rows and dh
+template <int DHP>
+__device__ __forceinline__ void stage(const float* __restrict__ src, int r0,
                                       int n_rows, int dh,
                                       float* __restrict__ dst) {
   constexpr int LD = DHP + 4;
@@ -78,7 +70,7 @@ __device__ __forceinline__ void stage(const T* __restrict__ src, int r0,
     const int gr = r0 + r;
     float x = 0.0f;
     if (gr < n_rows && c < dh)
-      x = to_f32(src[static_cast<long long>(gr) * dh + c]);
+      x = src[static_cast<long long>(gr) * dh + c];
     dst[r * LD + c] = x;
   }
 }
@@ -95,10 +87,12 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-template <typename T, int DHP>
+template <int DHP>
 __global__ void __launch_bounds__(THREADS, DHP <= 128 ? 2 : 1)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int hq,
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       int hq,
                        int hkv, int sq, int skv, int dh, int causal,
                        int has_window, int window, int q_offset,
                        float scale) {
@@ -114,11 +108,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
   const int q0 = blockIdx.x * BQ;
-  const T* qb = q + static_cast<long long>(bh) * sq * dh;
-  const T* kb = k + static_cast<long long>(kvh) * skv * dh;
-  const T* vb = v + static_cast<long long>(kvh) * skv * dh;
+  const float* qb = q + static_cast<long long>(bh) * sq * dh;
+  const float* kb = k + static_cast<long long>(kvh) * skv * dh;
+  const float* vb = v + static_cast<long long>(kvh) * skv * dh;
 
-  stage<T, DHP>(qb, q0, sq, dh, qs);
+  stage<DHP>(qb, q0, sq, dh, qs);
 
   // keys any row of this tile may see; tiles outside are wholly masked
   const long long q_lo = static_cast<long long>(q0) + q_offset;
@@ -145,7 +139,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (long long k0 = k_lo / BK * BK; k0 < k_hi; k0 += BK) {
     __syncthreads();  // the previous tile's P V reads are done
-    stage<T, DHP>(kb, static_cast<int>(k0), skv, dh, kv);
+    stage<DHP>(kb, static_cast<int>(k0), skv, dh, kv);
     __syncthreads();
 
     // S = Q K^T for rows ty + 16a, keys tx + 16b
@@ -203,7 +197,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int c = 0; c < 4; ++c) acc[a][j][c] *= alpha;
     }
     __syncthreads();  // every read of K is done and p is written
-    stage<T, DHP>(vb, static_cast<int>(k0), skv, dh, kv);
+    stage<DHP>(vb, static_cast<int>(k0), skv, dh, kv);
     __syncthreads();
 
     // acc += P V for rows ty + 16a, dims 4 (tx + 16 j) .. + 3
@@ -231,75 +225,60 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + ty + 16 * a;
     if (r >= sq) continue;
     const float safe = l[a] == 0.0f ? 1.0f : l[a];
-    T* o = out + (static_cast<long long>(bh) * sq + r) * dh;
+    float* o = out + (static_cast<long long>(bh) * sq + r) * dh;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int d = 4 * (tx + 16 * j) + c;
-        if (d < dh) store(o + d, acc[a][j][c] / safe);
+        if (d < dh) o[d] = acc[a][j][c] / safe;
       }
   }
 }
 
-template <typename T, int DHP>
+template <int DHP>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int hq, int hkv, int sq, int skv, int dh, int causal,
            int has_window, int window, int q_offset, float scale,
            cudaStream_t stream) {
   constexpr int LD = DHP + 4;
   constexpr size_t SMEM = sizeof(float) * (BQ * LD + BK * LD + BQ * PLD);
-  auto kernel = flash_attention_kernel<T, DHP>;
+  auto kernel = flash_attention_kernel<DHP>;
   int err = static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(SMEM)));
   if (err) return err;
   const dim3 grid((sq + BQ - 1) / BQ, b * hq);
   kernel<<<grid, THREADS, SMEM, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), hq, hkv, sq, skv, dh,
-      causal, has_window, window, q_offset, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), hq, hkv, sq,
+      skv, dh, causal, has_window, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, void* out, int b,
-              int hq, int hkv, int sq, int skv, int dh, int causal,
-              int has_window, int window, int q_offset, float scale,
-              cudaStream_t s) {
-  if (dh <= 64)
-    return launch<T, 64>(q, k, v, out, b, hq, hkv, sq, skv, dh, causal,
-                         has_window, window, q_offset, scale, s);
-  if (dh <= 128)
-    return launch<T, 128>(q, k, v, out, b, hq, hkv, sq, skv, dh, causal,
-                          has_window, window, q_offset, scale, s);
-  if (dh <= 192)
-    return launch<T, 192>(q, k, v, out, b, hq, hkv, sq, skv, dh, causal,
-                          has_window, window, q_offset, scale, s);
-  return launch<T, 256>(q, k, v, out, b, hq, hkv, sq, skv, dh, causal,
-                        has_window, window, q_offset, scale, s);
 }
 
 }  // namespace
 
 // q (b, hq, sq, dh), k and v (b, hkv, skv, dh), out (b, hq, sq, dh), all
-// contiguous on the current device in one dtype (0: f32, 1: bf16);
-// hq % hkv == 0, 1 <= dh <= 256, sq >= 1, skv >= 1, b * hq <= 65535.
-// Returns a cudaError_t (0 on success; 1 for an unknown dtype or dh).
+// f32 and contiguous on the current device; hq % hkv == 0,
+// 1 <= dh <= 256, sq >= 1, skv >= 1, b * hq <= 65535.  Returns a
+// cudaError_t (0 on success; 1 for a dh it does not take).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int b,
                                       int hq, int hkv, int sq, int skv,
                                       int dh, int causal, int has_window,
                                       int window, int q_offset, float scale,
-                                      int dtype, void* stream) {
+                                      void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dh < 1 || dh > 256) return 1;
-  if (dtype == 0)
-    return launch_dh<float>(q, k, v, out, b, hq, hkv, sq, skv, dh, causal,
-                            has_window, window, q_offset, scale, s);
-  if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(q, k, v, out, b, hq, hkv, sq, skv, dh,
-                                    causal, has_window, window, q_offset,
-                                    scale, s);
-  return 1;
+  if (dh <= 64)
+    return launch<64>(q, k, v, out, b, hq, hkv, sq, skv, dh, causal,
+                      has_window, window, q_offset, scale, s);
+  if (dh <= 128)
+    return launch<128>(q, k, v, out, b, hq, hkv, sq, skv, dh, causal,
+                       has_window, window, q_offset, scale, s);
+  if (dh <= 192)
+    return launch<192>(q, k, v, out, b, hq, hkv, sq, skv, dh, causal,
+                       has_window, window, q_offset, scale, s);
+  return launch<256>(q, k, v, out, b, hq, hkv, sq, skv, dh, causal,
+                     has_window, window, q_offset, scale, s);
 }

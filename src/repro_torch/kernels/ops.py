@@ -9,6 +9,9 @@ fallback: a CUDA tensor never silently takes the plain path.
 
 Each kernel counts its launches (:func:`launch_counts`,
 :func:`reset_launch_counts`); calls of the plain version count nothing.
+A kernel with two routes (``flash_attention``: bf16 on the tensor cores,
+f32 on the CUDA cores) counts both under its name, and
+:func:`entry_launch_counts` says which C entry point ran.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ from . import pairwise_dist as _pd
 from . import ref as _ref
 
 #: the kernels ops dispatches to the card, each a ``<name>_launch`` C
-#: entry point in ``csrc/*.cu``
-KERNELS = tuple(_build.SIGNATURES)
+#: entry point in ``csrc/*.cu`` (``flash_attention`` has a second one,
+#: ``flash_attention_sm90_launch``, for bf16)
+KERNELS = _build.KERNELS
 
 
 def _on_card(t: torch.Tensor, impl: Optional[str]) -> bool:
@@ -73,6 +77,13 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return dict(_build.LAUNCHES)
+
+
+def entry_launch_counts() -> Dict[str, int]:
+    """Launches per C entry point since the last
+    :func:`reset_launch_counts`: ``flash_attention_sm90`` is the bf16
+    tensor-core route, ``flash_attention`` the f32 one."""
+    return dict(_build.ENTRY_LAUNCHES)
 
 
 def reset_launch_counts() -> None:

@@ -7,7 +7,8 @@ every f32 product and sum in the same order).  ``flash_attention`` sums
 in another f32 order than its plain version: atol = rtol = 2e-5 in
 float32 (``tests/test_kernels.py``'s tolerance); in bfloat16 it is held
 against the plain version run on the f32 upcast of the same inputs and
-rounded to bf16, within one bf16 ulp (atol = rtol = 2^-7).
+rounded to bf16, within one bf16 ulp (atol = rtol = 2^-7); bf16 runs on
+the tensor cores (``flash_attention_sm90``), f32 on the CUDA cores.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports neither JAX nor ``repro``, so it runs on a machine that has
@@ -212,16 +213,54 @@ def test_flash_attention_matches_plain_f32(cuda, case):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
-def test_flash_attention_matches_plain_bf16(cuda, case):
+# bf16 cases of the tensor-core route: the padding path (dh 36), decode
+# rows and sq = 33 with q_offset > 0, windows of 127 / 128 / 129 at the
+# 128-key tile's edge, skv not a multiple of 128 (causal and not), the
+# dh-256 bucket, and gemma3-27b's prefill shape (window and global)
+BF16_CASES = [
+    (1, 4, 2, 77, 77, 36, True, None, 0),
+    (2, 3, 1, 50, 90, 36, True, 16, 40),
+    (2, 8, 2, 1, 300, 128, True, None, 299),
+    (1, 4, 2, 1, 1000, 64, True, 256, 999),
+    (1, 4, 2, 33, 200, 64, True, None, 167),
+    (2, 4, 2, 33, 161, 128, True, 64, 128),
+    (1, 2, 1, 384, 384, 128, True, 127, 0),
+    (1, 2, 1, 384, 384, 128, True, 128, 0),
+    (1, 2, 1, 384, 384, 128, True, 129, 0),
+    (1, 4, 2, 200, 333, 128, False, None, 0),
+    (1, 4, 2, 200, 333, 128, True, None, 133),
+    (1, 2, 1, 150, 150, 256, True, 100, 0),
+    (1, 32, 16, 4096, 4096, 128, True, 1024, 0),
+    (1, 32, 16, 4096, 4096, 128, True, None, 0),
+]
+
+
+def _check_bf16(case, dev):
+    """The bf16 kernel against the plain version of the f32 upcast,
+    rounded to bf16, within one ulp; it must take the tensor-core
+    route."""
     *_, causal, window, q_off = case
-    q, k, v = _flash_inputs(case, torch.bfloat16, cuda)
+    q, k, v = _flash_inputs(case, torch.bfloat16, dev)
+    ops.reset_launch_counts()
     got = ops.attention(q, k, v, causal=causal, window=window, q_offset=q_off)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert ops.entry_launch_counts()["flash_attention_sm90"] == 1
     want = ops.attention(q.float(), k.float(), v.float(), causal=causal,
                          window=window, q_offset=q_off, impl="ref")
-    assert got.dtype == torch.bfloat16
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.to(torch.bfloat16).float(),
                                atol=2 ** -7, rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_attention_matches_plain_bf16(cuda, case):
+    _check_bf16(case, cuda)
+
+
+@pytest.mark.parametrize("case", BF16_CASES, ids=str)
+def test_flash_attention_tensor_core_route(cuda, case):
+    _check_bf16(case, cuda)
 
 
 def test_flash_attention_rejects_bad_arguments(cuda):
@@ -257,6 +296,7 @@ def test_lm_prefill_matches_decode_on_card(cuda):
     ops.reset_launch_counts()
     full = m.forward(p, {"tokens": toks})
     assert ops.launch_counts()["flash_attention"] == 6
+    assert ops.entry_launch_counts()["flash_attention"] == 6  # f32 route
     caches = m.decode_init(2, 80)
     outs = []
     for t in range(80):
@@ -264,3 +304,25 @@ def test_lm_prefill_matches_decode_on_card(cuda):
         outs.append(logits)
     torch.testing.assert_close(torch.stack(outs, 1), full, atol=2e-4,
                                rtol=2e-4)
+
+
+def test_lm_bf16_prefill_takes_tensor_core_route(cuda):
+    """gemma3-27b's smoke config cut to 6 layers in bf16: the prefill's
+    six flash launches all run on the tensor cores; logits are finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(get_config("gemma3-27b").smoke(), n_layers=6,
+                              dtype="bfloat16")
+    m = build_model(cfg)
+    p = m.init(4)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 200))).to(cuda)
+    ops.reset_launch_counts()
+    logits = m.forward(p, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 6
+    assert ops.entry_launch_counts()["flash_attention_sm90"] == 6
+    assert bool(torch.isfinite(logits).all())

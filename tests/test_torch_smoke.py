@@ -110,3 +110,42 @@ def test_script_refuses_without_cuda(capsys):
         pytest.skip("a CUDA device is present")
     assert chip_smoke.main([]) != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN56_GLOBAL__N__f19cc713_23_flash_\
+attention_sm90_cu_bed5ab3f27flash_attention_sm90_kernelILi128EEEv14CUtensor\
+Map_stS1_S1_P13__nv_bfloat16iiiiiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN56_GLOBAL__N__f19cc713_23_flash_\
+attention_sm90_cu_bed5ab3f27flash_attention_sm90_kernelILi128EEEv14CUtensor\
+Map_stS1_S1_P13__nv_bfloat16iiiiiiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_Z15lsh_hash_kernelPKfS0_PKiifiiPi' \
+for 'sm_90a'
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 40 registers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__e7510225_18_flash_\
+attention_cu_23f0aea722flash_attention_kernelILi64EEEvPKfS2_S2_Pfiiiiiiiiif' \
+for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 114 registers
+"""
+
+
+def test_build_report_parsers_read_ptxas_and_sass():
+    """The build phase's readers of ``-Xptxas -v`` and ``cuobjdump
+    -sass`` output name kernels by their demangled identifier."""
+    assert chip_smoke.ptxas_report(_PTXAS) == {
+        "flash_attention_sm90_kernel<128>": {
+            "spill_stores": 0, "spill_loads": 0, "registers": 168},
+        "lsh_hash_kernel": {"spill_stores": 4, "spill_loads": 12,
+                            "registers": 40},
+        "flash_attention_kernel<64>": {"spill_stores": 0, "spill_loads": 0,
+                                       "registers": 114}}
+    sass = ("\tFunction : _ZN3_GL27flash_attention_sm90_kernelILi64EEEvv\n"
+            "  /*0a0*/ HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ ;\n"
+            "  /*0b0*/ HGMMA.64x64x16.F32.BF16 R88, R120, gdesc[UR8] ;\n"
+            "\tFunction : _Z15lsh_hash_kernelv\n  /*000*/ IMAD R1, R2 ;\n")
+    assert chip_smoke.hgmma_counts(sass) == {
+        "flash_attention_sm90_kernel<64>": 2, "lsh_hash_kernel": 0}
