@@ -12,7 +12,8 @@ Phases, each of which raises on failure (exit code != 0):
              csrc/*.cu`` with nvcc for sm_90a and print the seconds, each
              kernel's registers and spills (``-Xptxas -v``) and the
              ``HGMMA`` (wgmma) instructions in the SASS of the bf16
-             flash kernel (``cuobjdump -sass``); a count of 0 fails.
+             flash kernel (``cuobjdump -sass``); a count of 0 fails, and
+             so does a spill in an ``eps_neighbor_counts`` kernel.
 3. main    — the ``soa-device`` streaming engine through the public API:
              the paper's blobs set (n=200,000, d=10, 10 clusters) with
              k=10, t=10, eps=0.75, inserted in batches of 1000 with deltas
@@ -68,8 +69,10 @@ Phases, each of which raises on failure (exit code != 0):
              (out-of-range ids included); ``eps_neighbor_counts`` at the
              main path's points (200,000 x 10) and at 20,000 x 10, beside
              a blocked ``torch.matmul`` composite (TF32 off; several
-             calls, so no library column), and over a sweep of
-             tile-ragged n and d in {1, 3, 16, 54}.
+             calls, so no library column), at covertype's width (blobs
+             of 100,000 x 54 in 7 clusters, eps 1.0; its mean count is
+             printed), and over a sweep of n on the 128-point tile
+             edges and d in {1, 3, 4, 16, 20, 54, 64, 96}.
 7. profile — device busy share of five more insert batches at the
              main path's final state (torch.profiler).
 
@@ -122,9 +125,18 @@ MAIN_KERNELS = ("lsh_hash", "slot_counts", "bucket_core_stats")
 # blobs, with benchmarks/common.py stream_eval's protocol
 BASELINES = ("naive", "emz-static", "emz-fixed")
 BASELINE_POINTS = 20_000
-# shapes of the eps_neighbor_counts correctness sweep
-SWEEP_N = (0, 1, 63, 64, 65, 129, 1000, 4097, 20_001)
-SWEEP_D = (1, 3, 16, 54)
+# shapes of the eps_neighbor_counts correctness sweep: n on the edges of
+# the kernel's 128-point tiles, 8193 (blocks start inside a row of tile
+# pairs and cross to the next on 132 SMs), d up to the whole-d limit (64)
+# and above it (96: k staged in chunks)
+SWEEP_N = (0, 1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 1000, 4097,
+           8193, 20_001)
+SWEEP_D = (1, 3, 4, 16, 20, 54, 64, 96)
+# eps_neighbor_counts at covertype's width (DATASET_SPECS["covertype"] =
+# (581012, 54, 7)), cut to 100,000 points so that the plain version's one
+# comparison takes seconds; eps puts the mean count at ~10^2
+WIDE_POINTS, WIDE_D, WIDE_CLUSTERS, WIDE_EPS = 100_000, 54, 7, 1.0
+WIDE_MEAN_COUNT = (10, 10_000)
 # LM phase: gemma3-27b at its published widths, depth cut from 62 layers
 # to one 5:1 local:global period (62 layers of f32 weights, ~102 GB, do
 # not fit one 80 GB card; 6 layers are 5.30 B parameters, 21.2 GB)
@@ -175,8 +187,12 @@ def _kernel_name(mangled: str) -> str:
         n = str(end - start)
         if mangled[start - len(n):start] == n and not \
                 mangled[start].isdigit():
-            t = re.match(r"ILi(\d+)E", mangled[end:])
-            return mangled[start:end] + (f"<{t.group(1)}>" if t else "")
+            t = re.match(r"IL([ib])(\d+)E", mangled[end:])
+            if not t:
+                return mangled[start:end]
+            arg = (t.group(2) if t.group(1) == "i"
+                   else ("false", "true")[int(t.group(2))])
+            return f"{mangled[start:end]}<{arg}>"
     return mangled
 
 
@@ -218,7 +234,7 @@ def hgmma_counts(sass: str) -> dict:
 def build_report() -> dict:
     """The built library's ptxas registers / spills per kernel and the
     HGMMA count of each bf16 flash kernel; raises when the bf16 route
-    holds no HGMMA."""
+    holds no HGMMA or an ``eps_neighbor_counts`` kernel spills."""
     from repro_torch.kernels import _build
 
     sass = subprocess.run(
@@ -229,7 +245,13 @@ def build_report() -> dict:
     if not hgmma or min(hgmma.values()) == 0:
         raise AssertionError(f"no HGMMA in the bf16 flash kernel's SASS: "
                              f"{hgmma}")
-    return {"ptxas": ptxas_report(_build.build_log()), "hgmma": hgmma}
+    ptxas = ptxas_report(_build.build_log())
+    eps = {k: v for k, v in ptxas.items() if "eps_neighbor_counts" in k}
+    if len(eps) != 3 or any(v.get("spill_stores", 1) or
+                            v.get("spill_loads", 1) for v in eps.values()):
+        raise AssertionError(f"eps_neighbor_counts kernels missing or "
+                             f"spilling: {eps}")
+    return {"ptxas": ptxas, "hgmma": hgmma, "eps_ptxas": eps}
 
 
 # ---------------------------------------------------------------------- #
@@ -536,10 +558,11 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def check_kernels(last, launches, card: str, x_base):
+def check_kernels(last, launches, card: str, x_base, build):
     """Bit-exact and timed comparison of each kernel with its plain
     version at its path's shapes (``x_base``: the baselines path's final
-    points); returns the ``kernels`` list."""
+    points; ``build``: the build phase's report); returns the ``kernels``
+    list."""
     import numpy as np
     import torch
 
@@ -632,54 +655,49 @@ def check_kernels(last, launches, card: str, x_base):
     from repro_torch.data import blobs
 
     X, _ = blobs(n=FULL_POINTS, d=D, n_clusters=10, seed=SEED)
-    at = {}
-    for tag, xs in (("", torch.from_numpy(X.astype(np.float32)).to(dev)),
-                    ("_20k", torch.from_numpy(x_base).to(dev))):
-        got = ops.eps_neighbor_counts(xs, eps=EPS)
-        err = max_abs_err(got, ops.eps_neighbor_counts(xs, eps=EPS,
-                                                       impl="ref"))
-        n_pts = xs.shape[0]
-        comp = composite_eps_counts(xs, EPS)
-        at[tag] = {
-            "n": n_pts, "err": err,
-            "ms": time_ms(lambda: ops.eps_neighbor_counts(xs, eps=EPS),
-                          reps=5, warmup=1),
-            "plain_ms": time_ms(lambda: ops.eps_neighbor_counts(
-                xs, eps=EPS, impl="ref"), reps=2, warmup=1),
-            "composite_ms": time_ms(lambda: composite_eps_counts(xs, EPS),
-                                    reps=3, warmup=1),
-            "composite_rows_differing": int((comp != got).sum()),
-            "device_ms": kernel_device_ms({
-                "eps_neighbor_counts":
-                    lambda: ops.eps_neighbor_counts(xs, eps=EPS)},
-                reps=3)["eps_neighbor_counts"],
-            "bytes": (xs.numel() + n_pts) * 4,
-            "ops": eps_ops(n_pts, D),
-            "ops_all_pairs": n_pts * n_pts * (2 * D + 4),
-        }
-        del xs, got, comp
+    big = eps_at(torch.from_numpy(X.astype(np.float32)).to(dev), EPS)
+    small = eps_at(torch.from_numpy(x_base).to(dev), EPS)
+    X, _ = blobs(n=WIDE_POINTS, d=WIDE_D, n_clusters=WIDE_CLUSTERS,
+                 seed=SEED)
+    wide = eps_at(torch.from_numpy(X.astype(np.float32)).to(dev), WIDE_EPS,
+                  composite=False, plain_reps=0)
+    del X
+    lo, hi = WIDE_MEAN_COUNT
+    if not lo <= wide["mean_count"] <= hi:
+        raise AssertionError(f"eps_neighbor_counts at {WIDE_POINTS} x "
+                             f"{WIDE_D}: mean count {wide['mean_count']} "
+                             f"outside [{lo}, {hi}]")
     sweep_err, sweep_cases = eps_sweep(dev)
-    big, small = at[""], at["_20k"]
-    record("eps_neighbor_counts", max(big["err"], small["err"], sweep_err),
+    extra = {}
+    for tag, row in (("_20k", small), ("_100k_54", wide)):
+        extra.update({f"{k}{tag}": v for k, v in row.items()
+                      if k not in ("bytes", "ops", "ops_all_pairs")})
+        extra[f"bound_ms{tag}"] = bound(row["bytes"], row["ops"])[0]
+        extra[f"bound_share{tag}"] = extra[f"bound_ms{tag}"] / row["ms"]
+    record("eps_neighbor_counts",
+           max(big["err"], small["err"], wide["err"], sweep_err),
            big["ms"], big["plain_ms"], big["bytes"], big["ops"], None,
-           n=big["n"], d=D, device_ms=big["device_ms"],
-           composite_ms=big["composite_ms"],
+           n=big["n"], d=D, eps=EPS, mean_count=big["mean_count"],
+           device_ms=big["device_ms"], composite_ms=big["composite_ms"],
            composite_rows_differing=big["composite_rows_differing"],
-           n_20k=small["n"], ms_20k=small["ms"],
-           plain_ms_20k=small["plain_ms"],
-           bound_ms_20k=bound(small["bytes"], small["ops"])[0],
+           bound_share=bound(big["bytes"], big["ops"])[0] / big["ms"],
            bound_ms_all_pairs=bound(big["bytes"], big["ops_all_pairs"])[0],
            bound_ms_all_pairs_20k=bound(small["bytes"],
                                         small["ops_all_pairs"])[0],
-           device_ms_20k=small["device_ms"],
-           composite_ms_20k=small["composite_ms"],
-           composite_rows_differing_20k=small["composite_rows_differing"],
-           sweep_cases=sweep_cases, sweep_max_abs_err=sweep_err)
+           ptxas=build["eps_ptxas"], sweep_cases=sweep_cases,
+           sweep_max_abs_err=sweep_err, **extra)
     print(f"eps_neighbor_counts: composite, not one call (blocked "
           f"torch.matmul f32, TF32 off, compare, sum): "
           f"{big['composite_ms']:.3f} ms at {big['n']} x {D}, "
           f"{small['composite_ms']:.3f} ms at {small['n']} x {D}; kernel "
           f"{big['ms']:.3f} / {small['ms']:.3f} ms  [{card}]", flush=True)
+    print(f"eps_neighbor_counts at {WIDE_POINTS} x {WIDE_D} "
+          f"({WIDE_CLUSTERS} clusters, eps {WIDE_EPS}): mean count "
+          f"{wide['mean_count']:.2f}; kernel {wide['ms']:.3f} ms per call, "
+          f"{wide['device_ms']:.3f} ms device, bound "
+          f"{extra['bound_ms_100k_54']:.3f} ms (share "
+          f"{extra['bound_share_100k_54']:.3f}); plain {wide['plain_ms']:.1f}"
+          f" ms  [{card}]", flush=True)
     torch.cuda.synchronize()
     bad_k = [k["name"] for k in out if k["max_abs_err"] != 0]
     if bad_k:
@@ -695,6 +713,54 @@ def bound(nbytes: int, nops: int):
     t_ops = nops / SCALAR_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def eps_at(xs, eps: float, *, composite: bool = True, plain_reps: int = 2):
+    """``eps_neighbor_counts`` on the points ``xs`` (on the card) against
+    its plain version (max abs error), timed: per call (CUDA events),
+    device per call (profiler), the plain version (``plain_reps`` timed
+    calls after one; with 0, the one comparison call is timed) and,
+    with ``composite``, the blocked matmul composite."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    got = ops.eps_neighbor_counts(xs, eps=eps)
+    plain = lambda: ops.eps_neighbor_counts(xs, eps=eps,  # noqa: E731
+                                            impl="ref")
+    if plain_reps:
+        err = max_abs_err(got, plain())
+        plain_ms = time_ms(plain, reps=plain_reps, warmup=0)
+    else:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain()
+        end.record()
+        end.synchronize()
+        err, plain_ms = max_abs_err(got, want), start.elapsed_time(end)
+        del want
+    n, d = xs.shape
+    row = {
+        "n": n, "d": d, "eps": eps, "err": err,
+        "mean_count": float(got.double().mean()),
+        "ms": time_ms(lambda: ops.eps_neighbor_counts(xs, eps=eps),
+                      reps=5, warmup=1),
+        "plain_ms": plain_ms,
+        "device_ms": kernel_device_ms({
+            "eps_neighbor_counts":
+                lambda: ops.eps_neighbor_counts(xs, eps=eps)},
+            reps=3)["eps_neighbor_counts"],
+        "bytes": (xs.numel() + n) * 4,
+        "ops": eps_ops(n, d),
+        "ops_all_pairs": n * n * (2 * d + 4),
+    }
+    if composite:
+        comp = composite_eps_counts(xs, eps)
+        row["composite_ms"] = time_ms(lambda: composite_eps_counts(xs, eps),
+                                      reps=3, warmup=1)
+        row["composite_rows_differing"] = int((comp != got).sum())
+    return row
 
 
 def eps_ops(n: int, d: int) -> int:
@@ -736,8 +802,8 @@ def composite_eps_counts(x, eps: float):
 
 def eps_sweep(dev):
     """``eps_neighbor_counts`` against its plain version on tile-ragged
-    n and on d in SWEEP_D (d = 54 spans several shared-memory chunks),
-    with duplicated points; returns (max abs error, cases)."""
+    n and on d in SWEEP_D (d = 96 is staged in chunks of k), with
+    duplicated points; returns (max abs error, cases)."""
     import numpy as np
     import torch
 
@@ -1279,6 +1345,8 @@ def main(argv=None) -> int:
     build = build_report()
     print("build: ptxas -v " + json.dumps(build["ptxas"]), flush=True)
     print("build: HGMMA in SASS " + json.dumps(build["hgmma"]), flush=True)
+    print("build: eps_neighbor_counts ptxas -v (registers, spill bytes) "
+          + json.dumps(build["eps_ptxas"]), flush=True)
 
     # 3. main path
     if args.points != FULL_POINTS:
@@ -1316,7 +1384,7 @@ def main(argv=None) -> int:
     launches = dict(metrics["launches"])
     launches["eps_neighbor_counts"] = \
         base["launches"]["eps_neighbor_counts"]
-    kernels = check_kernels(last, launches, card, x_base) + [flash]
+    kernels = check_kernels(last, launches, card, x_base, build) + [flash]
     share = sum(k["launches"] * k["ms"] for k in kernels
                 if k["name"] in MAIN_KERNELS) / 1e3 / metrics["insert_s"]
     print(f"main-path kernel time (launches x ms per call) / insert wall "

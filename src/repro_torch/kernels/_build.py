@@ -39,7 +39,10 @@ SIGNATURES: Dict[str, tuple] = {
     "lsh_hash": (_P, _P, _P, _F, _I, _I, _I, _P, _P),
     "slot_counts": (_P, _LL, _I, _P, _P),
     "bucket_core_stats": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
-    "eps_neighbor_counts": (_P, _I, _I, _F, _P, _P, _P),
+    # x, n, d, thr, scratch, out, then pairwise_dist.plan: whole, kc,
+    # n_tiles, pairs, grid, smem bytes; stream
+    "eps_neighbor_counts": (_P, _I, _I, _F, _P, _P, _I, _I, _I, _LL, _I,
+                            _I, _P),
     # q, k, v, out, b, hq, hkv, sq, skv, dh, causal, has_window, window,
     # q_offset, scale, stream: the f32 route (CUDA cores) ...
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -149,3 +149,23 @@ def test_build_report_parsers_read_ptxas_and_sass():
             "\tFunction : _Z15lsh_hash_kernelv\n  /*000*/ IMAD R1, R2 ;\n")
     assert chip_smoke.hgmma_counts(sass) == {
         "flash_attention_sm90_kernel<64>": 2, "lsh_hash_kernel": 0}
+
+
+def test_ptxas_names_bool_template_kernels():
+    """The eps kernel's two staging modes are instantiations of one
+    template on a bool; the build phase tells them apart."""
+    log = ("ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0"
+           "a1b2c3d_16_pairwise_dist_cu_9f8e7d6c26eps_neighbor_counts_kernel"
+           "ILb1EEEvPKfS2_iixixfPi' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\nptxas info    : Used 128 registers\n"
+           "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0"
+           "a1b2c3d_16_pairwise_dist_cu_9f8e7d6c26eps_neighbor_counts_kernel"
+           "ILb0EEEvPKfS2_iixixfPi' for 'sm_90a'\n"
+           "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill "
+           "loads\nptxas info    : Used 128 registers\n")
+    assert chip_smoke.ptxas_report(log) == {
+        "eps_neighbor_counts_kernel<true>": {
+            "spill_stores": 0, "spill_loads": 0, "registers": 128},
+        "eps_neighbor_counts_kernel<false>": {
+            "spill_stores": 8, "spill_loads": 8, "registers": 128}}
