@@ -22,7 +22,12 @@ Phases, each of which raises on failure (exit code != 0):
              batches of 1000, then snapshot + restore.  The same stream
              runs through the host ``soa`` engine (no kernels); labels,
              deltas and the restored labels must be equal, and every
-             kernel must have launched.  Prints throughput and ARI.
+             kernel must have launched: the bucket kernels once per
+             insert batch through the fused ``bucket_insert_pass``
+             route and never through their standalone entries, with no
+             size-table upload in the insert-only stream.  Prints
+             throughput, ARI and the host seconds of the two device
+             passes (``hash_pass_s``, ``stats_pass_s``).
 4. baselines — the paper's Table-2 streaming protocol at its default
              scale (``benchmarks/table2.py``, scale 0.1): blobs n=20,000,
              d=10, 10 clusters, k=10, t=10, eps=0.75, batches of 1000
@@ -66,7 +71,13 @@ Phases, each of which raises on failure (exit code != 0):
              where one exists, a library call; the profiler gives each
              kernel's device time per launch.  The bucket kernels run at
              the main path's last insert batch and slot count
-             (out-of-range ids included); ``eps_neighbor_counts`` at the
+             (out-of-range ids included); so does their fused insert
+             pass, on fresh copies of the size table before that batch
+             (twice in a row, so the carried sizes are checked too; its
+             first result must equal what the main path computed), and
+             the host round trip of one batch's stats is timed in turns
+             against the sequence of standalone calls the engine made
+             before the fused pass (old, new, new, old); ``eps_neighbor_counts`` at the
              main path's points (200,000 x 10) and at 20,000 x 10, beside
              a blocked ``torch.matmul`` composite (TF32 off; several
              calls, so no library column), at covertype's width (blobs
@@ -74,10 +85,13 @@ Phases, each of which raises on failure (exit code != 0):
              printed), and over a sweep of n on the 128-point tile
              edges and d in {1, 3, 4, 16, 20, 54, 64, 96}.
 7. profile — device busy share of five more insert batches at the
-             main path's final state (torch.profiler).
+             main path's final state (torch.profiler), then the device
+             allocations and size-table uploads of three more batches'
+             stats passes.
 
 The line before the last is one JSON object with a ``kernels`` list (all
-five kernels); the last line is ``{"ok": true, "device": {...}}``.
+five kernels and the fused ``bucket_insert_pass`` route); the last line
+is ``{"ok": true, "device": {...}}``.
 ``--points`` cuts the main stream only (the cut is printed); d, k, t,
 eps and the batch never change.
 """
@@ -110,6 +124,9 @@ KERNEL_SOURCES = {
                     "src/repro/kernels/bucket_ops.py:117"),
     "bucket_core_stats": ("src/repro_torch/kernels/csrc/bucket_ops.cu",
                           "src/repro/kernels/bucket_ops.py:63"),
+    # the fused route of the two above, which the main path takes
+    "bucket_insert_pass": ("src/repro_torch/kernels/csrc/bucket_ops.cu",
+                           "src/repro/kernels/bucket_ops.py:117"),
     "eps_neighbor_counts": ("src/repro_torch/kernels/csrc/pairwise_dist.cu",
                             "src/repro/kernels/pairwise_dist.py:60"),
     # the bf16 route (tensor cores), which the main path takes
@@ -121,6 +138,9 @@ KERNEL_SOURCES = {
 FLASH_F32_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 #: the kernels the main path (phase 3) runs
 MAIN_KERNELS = ("lsh_hash", "slot_counts", "bucket_core_stats")
+#: the C entry points the main path launches them through: the bucket
+#: kernels' standalone entries must not run there
+MAIN_ENTRIES = ("lsh_hash", "bucket_insert_pass")
 # Table 2 at its default scale: benchmarks/table2.py run(scale=0.1) on
 # blobs, with benchmarks/common.py stream_eval's protocol
 BASELINES = ("naive", "emz-static", "emz-fixed")
@@ -282,19 +302,19 @@ def run_main_path(n_points: int, device: str):
     # host clock around the engine's two device passes (uploads, kernel
     # launches, downloads) — the device-path share of the wall time
     eng = dev.engine
-    pass_s = [0.0]
+    pass_s = {"hash": 0.0, "stats": 0.0}
 
-    def timed(fn):
+    def timed(fn, key):
         def run(*a, **kw):
             t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
             finally:
-                pass_s[0] += time.perf_counter() - t0
+                pass_s[key] += time.perf_counter() - t0
         return run
 
-    eng._hash_batch = timed(eng._hash_batch)
-    eng._batch_stats = timed(eng._batch_stats)
+    eng._hash_batch = timed(eng._hash_batch, "hash")
+    eng._batch_stats = timed(eng._batch_stats, "stats")
 
     ops.reset_launch_counts()
     ins_s = del_s = query_s = 0.0
@@ -325,12 +345,19 @@ def run_main_path(n_points: int, device: str):
         if b == n_batches - 1:
             rows = [eng._row[i] for i in ids]
             ns = eng._n_slots
-            last = {"x": np.asarray(Xb, np.float32),
-                    "slots": eng._slots[rows].copy(),
-                    "n_slots": ns, "sizes": eng._bsize[:ns].copy(),
+            slots = eng._slots[rows].copy()
+            sizes = eng._bsize[:ns].copy()
+            last = {"x": np.asarray(Xb, np.float32), "slots": slots,
+                    "n_slots": ns, "sizes": sizes,
+                    # the table the batch's stats pass started from, and
+                    # the support it gave the batch
+                    "sizes_before": sizes - np.bincount(
+                        slots.ravel(), minlength=ns).astype(np.int32),
+                    "support": eng._support[rows].copy(),
                     "eta": eng.lsh.eta.astype(np.float32),
                     "mixers": eng.lsh.mixers.copy(),
                     "inv_cell": eng.lsh.inv_cell}
+    size_uploads_ins = eng._dpass.n_size_uploads
     labels_ins = dev.labels()
     if labels_ins != host.labels():
         raise AssertionError("labels() differ after the inserts")
@@ -361,12 +388,23 @@ def run_main_path(n_points: int, device: str):
         raise AssertionError("labels differ after snapshot + restore")
     wall = time.perf_counter() - t_path
     launches = ops.launch_counts()
+    entries = ops.entry_launch_counts()
     last["restored"] = rest
+    if eng._dpass.n_passes != n_batches or size_uploads_ins:
+        raise AssertionError(f"{eng._dpass.n_passes} stats passes and "
+                             f"{size_uploads_ins} size-table uploads in "
+                             f"{n_batches} insert batches")
     if device != "cpu":
         missing = [k for k in MAIN_KERNELS if launches[k] <= 0]
         if missing:
             raise AssertionError(f"kernels never launched on the main "
                                  f"path: {missing}")
+        want = {"bucket_insert_pass": n_batches, "slot_counts": 0,
+                "bucket_core_stats": 0}
+        got = {k: entries[k] for k in want}
+        if got != want:
+            raise AssertionError(f"bucket kernel entries on the main path: "
+                                 f"{got}, expected {want}")
     metrics = {
         "points": n_points, "cut": n_points != FULL_POINTS,
         "d": D, "k": K, "t": T, "eps": EPS, "batch": BATCH,
@@ -374,10 +412,18 @@ def run_main_path(n_points: int, device: str):
         "insert_pts_per_s": n_points / ins_s,
         "delete_pts_per_s": len(victims) / del_s if del_s else None,
         "insert_s": ins_s, "delete_s": del_s, "query_s": query_s,
-        "main_path_wall_s": wall, "device_pass_s": pass_s[0],
-        "device_pass_share_of_insert": pass_s[0] / ins_s,
+        "main_path_wall_s": wall,
+        "device_pass_s": pass_s["hash"] + pass_s["stats"],
+        "device_pass_share_of_insert": (pass_s["hash"] + pass_s["stats"])
+        / ins_s,
+        "hash_pass_s": pass_s["hash"], "stats_pass_s": pass_s["stats"],
+        "stats_pass_ms_per_batch": pass_s["stats"] / n_batches * 1e3,
+        "stats_pass_share_of_insert": pass_s["stats"] / ins_s,
+        "stats_passes": eng._dpass.n_passes,
+        "size_uploads_during_inserts": size_uploads_ins,
         "n_slots": last["n_slots"], "ari_after_inserts": ari_ins,
         "ari_after_deletes": ari_del, "launches": launches,
+        "entry_launches": entries,
         "labels_equal_host_soa": True, "deltas_equal_host_soa": True,
         "restore_labels_equal": True,
     }
@@ -460,9 +506,11 @@ def run_baselines(n_points: int, device: str):
 # ---------------------------------------------------------------------- #
 # device time from the profiler (CUPTI)
 # ---------------------------------------------------------------------- #
-def device_events(fn):
+def device_events(fn, runtime: bool = False):
     """Run ``fn`` under torch.profiler; returns its wall seconds and the
-    (name, device microseconds) of every device activity it traced."""
+    (name, device microseconds) of every device activity it traced and,
+    with ``runtime``, the host microseconds spent in each CUDA runtime
+    call by name (``cudaStreamSynchronize``, ``cudaMemcpyAsync``, ...)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -473,8 +521,17 @@ def device_events(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return wall, [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
+    evs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    if not runtime:
+        return wall, evs
+    calls = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("cuda"):
+            us, n = calls.get(e.name, (0.0, 0))
+            calls[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    return wall, evs, {k: {"us": us, "calls": n}
+                       for k, (us, n) in sorted(calls.items())}
 
 
 def kernel_device_ms(fns, reps: int = 50):
@@ -514,7 +571,7 @@ def profile_insert_window(index, batches: int = 5):
         for b in range(batches):
             index.insert_batch(Xn[b * BATCH:(b + 1) * BATCH])
             index.drain_deltas()
-    wall, evs = device_events(run)
+    wall, evs, calls = device_events(run, runtime=True)
     kinds = {"kernels": 0.0, "memcpy": 0.0, "other": 0.0}
     for name, us in evs:
         key = ("kernels" if any(k in name for k in KERNEL_SOURCES)
@@ -523,7 +580,8 @@ def profile_insert_window(index, batches: int = 5):
     busy = sum(kinds.values())
     return {"batches": batches, "wall_s": wall, "device_busy_s": busy,
             "device_busy_share": busy / wall,
-            "by_kind_s": kinds, "device_events": len(evs)}
+            "by_kind_s": kinds, "device_events": len(evs),
+            "host_runtime_calls": calls}
 
 
 # ---------------------------------------------------------------------- #
@@ -642,13 +700,57 @@ def check_kernels(last, launches, card: str, x_base, build):
                                                  impl="ref")),
            (slots.numel() + distinct + 2 * n) * 4, 4 * slots.numel(),
            None)
+    # -- bucket_insert_pass: both of the above in one cooperative launch,
+    #    from the table the main path's last batch started from.  Reads
+    #    the n*t ids and the size table once, writes the entries the
+    #    batch touches and the packed [sizes | support]; per id a compare
+    #    and an atomic add, then a compare, a gather, a compare and an
+    #    add, and one copy per slot
+    pre = torch.from_numpy(last["sizes_before"]).to(dev)
+    first = ops.bucket_insert_pass(slots, pre.clone(), k=K)
+    want = torch.from_numpy(np.concatenate(
+        [last["sizes"], last["support"]])).to(dev)
+    if max_abs_err(first, want):
+        raise AssertionError("bucket_insert_pass differs from the main "
+                             "path's stats of its last batch")
+    err = 0
+    for s in (slots, bad):
+        a, b = pre.clone(), pre.clone()
+        for _call in range(2):  # the second call carries the first's sizes
+            err = max(err,
+                      max_abs_err(ops.bucket_insert_pass(s, a, k=K),
+                                  ops.bucket_insert_pass(s, b, k=K,
+                                                         impl="ref")),
+                      max_abs_err(a, b))
+    # timed on scratch copies, which grow by a batch each call
+    scratch, buf = pre.clone(), torch.empty(ns + n, dtype=torch.int32,
+                                            device=dev)
+    record("bucket_insert_pass", err,
+           time_ms(lambda: ops.bucket_insert_pass(slots, scratch, k=K,
+                                                  out=buf)),
+           time_ms(lambda: ops.bucket_insert_pass(slots, scratch, k=K,
+                                                  out=buf, impl="ref")),
+           (slots.numel() + 2 * ns + distinct + n) * 4,
+           6 * slots.numel() + ns, None,
+           replaces_also=KERNEL_SOURCES["bucket_core_stats"][1],
+           route_of=["slot_counts", "bucket_core_stats"],
+           round_trip=stats_round_trips(last, dev))
     dev_ms = kernel_device_ms({
         "lsh_hash": lambda: ops.lsh_hash(x, eta, mixers, inv_cell=inv),
         "slot_counts": lambda: ops.slot_counts(slots, n_slots=ns),
         "bucket_core_stats": lambda: ops.bucket_core_stats(slots, sizes,
-                                                           k=K)})
+                                                           k=K),
+        "bucket_insert_pass": lambda: ops.bucket_insert_pass(
+            slots, scratch, k=K, out=buf)})
     for k in out:
         k["device_ms"] = dev_ms[k["name"]]
+    rt = out[-1]["round_trip"]
+    print(f"bucket_insert_pass at {n} x {t}, {ns} slots: {out[-1]['ms']:.5f}"
+          f" ms per call, device {dev_ms['bucket_insert_pass']} ms; one "
+          f"batch's stats host to host, standalone sequence vs fused pass "
+          f"(old, new, new, old): {rt['old_ms'][0]:.4f}, "
+          f"{rt['new_ms'][0]:.4f}, {rt['new_ms'][1]:.4f}, "
+          f"{rt['old_ms'][1]:.4f} ms  [{card}]", flush=True)
 
     # -- eps_neighbor_counts: reads n*d floats, writes n counts; the
     #    operations are counted by eps_ops (each unordered pair once)
@@ -704,6 +806,164 @@ def check_kernels(last, launches, card: str, x_base, build):
         raise AssertionError(f"kernels disagree with their plain "
                              f"versions: {bad_k}")
     return out
+
+
+def stats_round_trip_standalone(slots_np, host_sizes, k: int, dev):
+    """One insert batch's stats as the engine took them before the fused
+    pass, through the standalone ops: upload the slots, histogram,
+    download, add on the host, upload the whole size table, gather,
+    download.  Updates
+    ``host_sizes`` in place; returns (delta, support)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    dslots = torch.from_numpy(slots_np).to(dev)
+    delta = ops.slot_counts(dslots, n_slots=len(host_sizes)).cpu().numpy()
+    host_sizes += delta
+    sizes = torch.from_numpy(host_sizes).to(dev)
+    supp, _core = ops.bucket_core_stats(dslots, sizes, k=k)
+    return delta, supp.cpu().numpy()
+
+
+def stats_round_trips(last, dev, reps: int = 200, warmup: int = 10):
+    """Host milliseconds per call of one insert batch's stats at the main
+    path's last batch, host array in to host arrays out, in turns on one
+    card: the standalone sequence, the engine's ``DeviceInsertPass``, the
+    pass again, the standalone sequence again.  The first call of each must give the same
+    delta and support; later calls run on a table that grows by a batch
+    each call (the work does not depend on the sizes)."""
+    import numpy as np
+
+    from repro_torch.core.soa import DeviceInsertPass
+
+    slots = last["slots"]
+    dpass = DeviceInsertPass(dev)
+
+    def old(host):
+        return stats_round_trip_standalone(slots, host, K, dev)
+
+    def new(host):
+        return dpass.run(slots, host, K)
+
+    ref = old(last["sizes_before"].copy())
+    dpass.mark_stale()  # its mirror holds zeros, not this table
+    got = new(last["sizes_before"].copy())
+    for a, b in zip(ref, got):
+        if not np.array_equal(a, b):
+            raise AssertionError("DeviceInsertPass differs from the "
+                                 "standalone sequence at the main path's "
+                                 "last batch")
+    times = {"old": [], "new": []}
+    for name, fn in (("old", old), ("new", new), ("new", new),
+                     ("old", old)):
+        host = last["sizes_before"].copy()
+        if name == "new":
+            dpass.mark_stale()
+            fn(host)  # the upload of a stale table, outside the timing
+        for _ in range(warmup):
+            fn(host)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(host)
+        times[name].append((time.perf_counter() - t0) / reps * 1e3)
+    return {"old_ms": times["old"], "new_ms": times["new"], "reps": reps,
+            "order": "old, new, new, old",
+            "new_size_uploads": dpass.n_size_uploads}
+
+
+def stats_ab_in_stream(index, batches: int = 25):
+    """The stats pass inside the insert stream, the standalone sequence
+    (``stats_round_trip_standalone``) against the engine's
+    ``DeviceInsertPass``, in turns on one card (old, new, new, old): each
+    turn inserts ``batches`` new batches of 1000 into
+    ``index`` (deltas drained) and records per batch the host ms of the
+    stats pass and of ``insert_batch`` + ``drain_deltas``.  The old turns
+    change the host sizes outside the pass, so the first new batch after
+    one uploads them (as the engine would after a delete)."""
+    import numpy as np
+
+    from repro_torch.data import blobs
+
+    eng = index.engine
+    Xn, _ = blobs(n=4 * batches * BATCH, d=D, n_clusters=10, seed=SEED + 97)
+    Xn = np.asarray(Xn)
+    stats_ms = []
+
+    def old_stats(slots, flat, ns, smask):
+        delta, supp = stats_round_trip_standalone(slots, eng._bsize[:ns],
+                                            eng.core_k, eng.device)
+        eng._sizes_changed()
+        new_sizes = eng._bsize[:ns]
+        return new_sizes - delta, new_sizes, eng._bsize[slots], supp
+
+    def timed(fn):
+        def run(*a):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                stats_ms.append((time.perf_counter() - t0) * 1e3)
+        return run
+
+    out = {"batches_per_turn": batches, "order": "old, new, new, old",
+           "old": [], "new": []}
+    new_stats = eng._batch_stats
+    try:
+        for turn, name in enumerate(("old", "new", "new", "old")):
+            eng._batch_stats = timed(old_stats if name == "old"
+                                     else new_stats)
+            stats_ms.clear()
+            ins_ms = []
+            for b in range(batches):
+                j = (turn * batches + b) * BATCH
+                t0 = time.perf_counter()
+                index.insert_batch(Xn[j:j + BATCH])
+                index.drain_deltas()
+                ins_ms.append((time.perf_counter() - t0) * 1e3)
+            out[name].append({
+                "stats_ms_median": float(np.median(stats_ms)),
+                "stats_ms_mean": float(np.mean(stats_ms)),
+                "insert_ms_median": float(np.median(ins_ms)),
+                "insert_ms_mean": float(np.mean(ins_ms))})
+    finally:
+        del eng._batch_stats
+    return out
+
+
+def stats_pass_allocations(index, batches: int = 3):
+    """Device allocations and size-table uploads of each stats pass in
+    ``batches`` more insert batches into ``index`` (deltas drained)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import blobs
+
+    eng = index.engine
+    Xn, _ = blobs(n=batches * BATCH, d=D, n_clusters=10, seed=SEED + 98)
+    Xn = np.asarray(Xn)
+    allocs, uploads = [], []
+    inner = eng._batch_stats
+
+    def counted(*a, **kw):
+        a0 = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+        u0 = eng._dpass.n_size_uploads
+        try:
+            return inner(*a, **kw)
+        finally:
+            allocs.append(torch.cuda.memory_stats().get(
+                "allocation.all.allocated", 0) - a0)
+            uploads.append(eng._dpass.n_size_uploads - u0)
+
+    eng._batch_stats = counted
+    try:
+        for b in range(batches):
+            index.insert_batch(Xn[b * BATCH:(b + 1) * BATCH])
+            index.drain_deltas()
+    finally:
+        del eng._batch_stats
+    return {"batches": batches, "device_allocations": allocs,
+            "size_uploads": uploads}
 
 
 def bound(nbytes: int, nops: int):
@@ -1384,15 +1644,19 @@ def main(argv=None) -> int:
     launches = dict(metrics["launches"])
     launches["eps_neighbor_counts"] = \
         base["launches"]["eps_neighbor_counts"]
+    launches["bucket_insert_pass"] = \
+        metrics["entry_launches"]["bucket_insert_pass"]
     kernels = check_kernels(last, launches, card, x_base, build) + [flash]
     share = sum(k["launches"] * k["ms"] for k in kernels
-                if k["name"] in MAIN_KERNELS) / 1e3 / metrics["insert_s"]
+                if k["name"] in MAIN_ENTRIES) / 1e3 / metrics["insert_s"]
     print(f"main-path kernel time (launches x ms per call) / insert wall "
           f"time: {share:.4f}  [{card}]", flush=True)
 
     # 7. where the device time goes in a few insert batches at the main
     #    path's final state (the restored index; launches already read)
     window = profile_insert_window(last["restored"])
+    window["stats_pass"] = stats_pass_allocations(last["restored"])
+    window["stats_in_stream"] = stats_ab_in_stream(last["restored"])
     window["card"] = card
     print("profile " + json.dumps(window), flush=True)
     print(card, flush=True)

@@ -1,11 +1,16 @@
 """SoADynamicDBSCAN — the vectorised structure-of-arrays engine core.
 
-The port of ``repro.core.soa``: the same host structures, host round
-trips and event replay, with the per-batch array passes (``lsh_hash``,
-``slot_counts``, ``bucket_core_stats``) run through
-:mod:`repro_torch.kernels.ops` on torch tensors on the engine's
-``device`` when ``use_device`` is set — the hand-written CUDA kernels on
-``"cuda"`` (the default), their plain PyTorch versions on ``"cpu"``.
+The port of ``repro.core.soa``: the same host structures and event
+replay, with the per-batch array passes (``lsh_hash``, then
+``slot_counts`` and ``bucket_core_stats`` fused into one
+``bucket_insert_pass``) run through :mod:`repro_torch.kernels.ops` on
+torch tensors on the engine's ``device`` when ``use_device`` is set — the
+hand-written CUDA kernels on ``"cuda"`` (the default), their plain
+PyTorch versions on ``"cpu"``.  The stats pass keeps a mirror of the
+bucket sizes on the device (:class:`DeviceInsertPass`), so an insert
+batch uploads its slots and downloads the new sizes and support once;
+the host sizes stay the source of truth, and every other host change of
+them marks the mirror stale (``_sizes_changed``).
 
 Same clustering as ``repro.core.dynamic_dbscan.DynamicDBSCAN``
 (Definition 4 cores, Thm-2 component structure, identical border-point
@@ -104,6 +109,92 @@ def _sv_components(n_rows: int, a: np.ndarray, b: np.ndarray) -> np.ndarray:
             return parent
 
 
+class DeviceInsertPass:
+    """An insert batch's bucket statistics on a device, against a device
+    mirror of a host size table.
+
+    The host table stays the source of truth; the mirror follows it
+    through the insert passes, and a caller that changes the host table
+    any other way calls :meth:`mark_stale`, after which the next pass
+    uploads the table again.  A pass is one upload of the batch's slots
+    (from pinned memory on ``"cuda"``), one ``ops.bucket_insert_pass``
+    launch, which adds the batch's histogram into the mirror and gathers
+    the support against the new sizes, and one synchronising download of
+    the packed [new sizes | support].  Its buffers persist and grow by
+    doubling, so a pass allocates nothing on the device.  On ``"cpu"`` the
+    same steps run the plain version on plain tensors (pinned memory needs
+    a CUDA build of torch).
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._pinned = device.type == "cuda"
+        self.sizes = torch.zeros(256, dtype=torch.int32, device=device)
+        self.fresh = True  # mirror == host table (zero past its end)
+        self._slots_h = self._slots_d = self._out_h = self._out_d = None
+        self.n_passes = 0
+        self.n_size_uploads = 0  # re-uploads of a stale host table
+
+    def mark_stale(self) -> None:
+        self.fresh = False
+
+    def _grow(self, buf: Optional[torch.Tensor], need: int,
+              host: bool) -> torch.Tensor:
+        if buf is not None and buf.numel() >= need:
+            return buf
+        cap = 1 << max(10, (need - 1).bit_length())
+        if host:
+            return torch.empty(cap, dtype=torch.int32,
+                               pin_memory=self._pinned)
+        return torch.empty(cap, dtype=torch.int32, device=self.device)
+
+    def run(self, slots: np.ndarray, host_sizes: np.ndarray,
+            k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(B, t) int32 slots and the host table's ``[:ns]`` view ->
+        ``(delta (ns,), support (B,))``; ``host_sizes`` is updated in place
+        to the new sizes, as the mirror is."""
+        B, t = slots.shape
+        ns = len(host_sizes)
+        if ns > self.sizes.numel():
+            # host slots past the mirror's end are zero while it is fresh
+            grown = torch.zeros(1 << (ns - 1).bit_length(),
+                                dtype=torch.int32, device=self.device)
+            grown[:self.sizes.numel()].copy_(self.sizes)
+            self.sizes = grown
+        if not self.fresh:
+            self.sizes[:ns].copy_(torch.from_numpy(host_sizes))
+            self.sizes[ns:].zero_()
+            self.fresh = True
+            self.n_size_uploads += 1
+        m, no = B * t, ns + B
+        self._slots_h = self._grow(self._slots_h, m, True)
+        self._slots_d = self._grow(self._slots_d, m, False)
+        self._out_h = self._grow(self._out_h, no, True)
+        self._out_d = self._grow(self._out_d, no, False)
+        self._slots_h.numpy()[:m] = slots.ravel()
+        dslots = self._slots_d[:m].view(B, t)
+        dslots.copy_(self._slots_h[:m].view(B, t), non_blocking=True)
+        dout = ops.bucket_insert_pass(dslots, self.sizes[:ns], k=k,
+                                      out=self._out_d[:no])
+        self._out_h[:no].copy_(dout, non_blocking=True)
+        if self._pinned:
+            torch.cuda.current_stream(self.device).synchronize()
+        res = self._out_h.numpy()[:no]
+        delta = res[:ns] - host_sizes
+        host_sizes[:] = res[:ns]
+        self.n_passes += 1
+        return delta, res[ns:].copy()
+
+    def check(self, host_table: np.ndarray, ns: int) -> None:
+        """A fresh mirror equals the host table's ``[:ns]`` and is zero
+        past it."""
+        if not self.fresh:
+            return
+        mirror = self.sizes.cpu().numpy()
+        assert np.array_equal(mirror[:ns], host_table[:ns])
+        assert not mirror[ns:].any()
+
+
 class SoADynamicDBSCAN:
     """Array-backed exact dynamic DBSCAN (drop-in for the dict engines)."""
 
@@ -141,6 +232,8 @@ class SoADynamicDBSCAN:
                 self.lsh.eta.astype(np.float32)).to(self.device)
             self._mix_dev = torch.from_numpy(
                 np.ascontiguousarray(self.lsh.mixers)).to(self.device)
+            # the insert passes' device mirror of the support-driving sizes
+            self._dpass = DeviceInsertPass(self.device)
 
         cap = 256
         self._cap = cap
@@ -409,13 +502,10 @@ class SoADynamicDBSCAN:
         the batch, their per-(point, table) gather, and each batch
         point's final support."""
         if self.use_device:
-            dslots = torch.from_numpy(slots).to(self.device)
-            delta = ops.slot_counts(dslots, n_slots=ns).cpu().numpy()
-            self._bsize[:ns] += delta
-            # the host keeps the sizes; each batch uploads them whole
-            sizes = torch.from_numpy(self._bsize[:ns]).to(self.device)
-            supp, _core = ops.bucket_core_stats(dslots, sizes, k=self.core_k)
-            supp = supp.cpu().numpy()
+            # one upload, one launch, one download; _bsize[:ns] is
+            # updated in place from the download
+            delta, supp = self._dpass.run(slots, self._bsize[:ns],
+                                          self.core_k)
         else:
             delta = np.bincount(flat, minlength=ns).astype(np.int32)
             self._bsize[:ns] += delta
@@ -801,6 +891,7 @@ class SoADynamicDBSCAN:
                                ns: int) -> None:
         """Batched occupancy decrement (delete mirror of _batch_stats)."""
         self._bsize[:ns] -= dep
+        self._sizes_changed()
 
     def _delete_one(self, idx: int) -> None:
         if idx not in self._row:
@@ -858,7 +949,14 @@ class SoADynamicDBSCAN:
         """Remove one occupant from slot ``s``; True when the removal
         dropped the slot's support-driving size below the threshold."""
         self._bsize[s] -= 1
+        self._sizes_changed()
         return self._bsize[s] == self.core_k - 1
+
+    def _sizes_changed(self) -> None:
+        """The host changed the sizes outside an insert pass: the device
+        mirror is stale until the next pass uploads them."""
+        if self.use_device:
+            self._dpass.mark_stale()
 
     def _relink(self, y: int, demoted_set: Set[int],
                 unchained: Set[int]) -> None:
@@ -1074,6 +1172,7 @@ class SoADynamicDBSCAN:
         if n:
             self._bsize[:self._n_slots] = np.bincount(
                 slots.ravel(), minlength=self._n_slots).astype(np.int32)
+            self._sizes_changed()
             self._add_members(slots, ids)
             # stored support must match the restored configuration
             recomputed = self._rebuild_support(slots, ids)
@@ -1104,6 +1203,8 @@ class SoADynamicDBSCAN:
         core_ids = {int(i) for i, r in zip(ids, rows)
                     if self._support[r] > 0}
         self._check_counts(rows, ids, core_ids)
+        if self.use_device:
+            self._dpass.check(self._bsize, self._n_slots)
         # 3. attachment validity: anchor is a live core sharing a bucket;
         #    unattached non-core points see no core in any bucket (noise)
         for i, r in zip(ids, rows):

@@ -25,7 +25,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -39,6 +39,9 @@ SIGNATURES: Dict[str, tuple] = {
     "lsh_hash": (_P, _P, _P, _F, _I, _I, _I, _P, _P),
     "slot_counts": (_P, _LL, _I, _P, _P),
     "bucket_core_stats": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # slots, n, t, sizes (updated in place), nb, k, out, stream: the
+    # engine's insert pass, both bucket kernels in one cooperative launch
+    "bucket_insert_pass": (_P, _I, _I, _P, _I, _I, _P, _P),
     # x, n, d, thr, scratch, out, then pairwise_dist.plan: whole, kc,
     # n_tiles, pairs, grid, smem bytes; stream
     "eps_neighbor_counts": (_P, _I, _I, _F, _P, _P, _I, _I, _I, _LL, _I,
@@ -51,8 +54,12 @@ SIGNATURES: Dict[str, tuple] = {
     "flash_attention_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _F, _P),
 }
-#: entry points that are a route of another kernel, counted under it
-ROUTE_OF: Dict[str, str] = {"flash_attention_sm90": "flash_attention"}
+#: entry points that are a route of other kernels, counted under each of
+#: them: one fused insert pass is a launch of both bucket kernels
+ROUTE_OF: Dict[str, Tuple[str, ...]] = {
+    "flash_attention_sm90": ("flash_attention",),
+    "bucket_insert_pass": ("slot_counts", "bucket_core_stats"),
+}
 #: the kernels, each counted once whichever entry point launched it
 KERNELS = tuple(name for name in SIGNATURES if name not in ROUTE_OF)
 
@@ -164,7 +171,8 @@ def launch(name: str, *args) -> None:
     if err:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error "
                            f"{err}")
-    LAUNCHES[ROUTE_OF.get(name, name)] += 1
+    for kernel in ROUTE_OF.get(name, (name,)):
+        LAUNCHES[kernel] += 1
     ENTRY_LAUNCHES[name] += 1
 
 

@@ -10,7 +10,8 @@ fallback: a CUDA tensor never silently takes the plain path.
 Each kernel counts its launches (:func:`launch_counts`,
 :func:`reset_launch_counts`); calls of the plain version count nothing.
 A kernel with two routes (``flash_attention``: bf16 on the tensor cores,
-f32 on the CUDA cores) counts both under its name, and
+f32 on the CUDA cores) counts both under its name, one launch of the
+fused ``bucket_insert_pass`` counts under both bucket kernels, and
 :func:`entry_launch_counts` says which C entry point ran.
 """
 
@@ -29,7 +30,8 @@ from . import ref as _ref
 
 #: the kernels ops dispatches to the card, each a ``<name>_launch`` C
 #: entry point in ``csrc/*.cu`` (``flash_attention`` has a second one,
-#: ``flash_attention_sm90_launch``, for bf16)
+#: ``flash_attention_sm90_launch``, for bf16; the two bucket kernels share
+#: ``bucket_insert_pass_launch``)
 KERNELS = _build.KERNELS
 
 
@@ -57,6 +59,17 @@ def bucket_core_stats(slots, sizes, *, k: int, impl: Optional[str] = None):
     return _ref.bucket_core_stats(slots, sizes, k)
 
 
+def bucket_insert_pass(slots, sizes, *, k: int, out=None,
+                       impl: Optional[str] = None):
+    """An insert batch's stats: ``sizes`` (nb,) += the histogram of
+    ``slots`` (n, t) IN PLACE; returns [new sizes | support] (nb + n,),
+    written into ``out`` when given.  One launch of both bucket kernels on
+    the card, counted under each."""
+    if _on_card(slots, impl):
+        return _bo.bucket_insert_pass(slots, sizes, k=k, out=out)
+    return _ref.bucket_insert_pass(slots, sizes, k, out)
+
+
 def eps_neighbor_counts(x, *, eps: float, impl: Optional[str] = None):
     if _on_card(x, impl):
         return _pd.eps_neighbor_counts(x, eps=eps)
@@ -82,7 +95,9 @@ def launch_counts() -> Dict[str, int]:
 def entry_launch_counts() -> Dict[str, int]:
     """Launches per C entry point since the last
     :func:`reset_launch_counts`: ``flash_attention_sm90`` is the bf16
-    tensor-core route, ``flash_attention`` the f32 one."""
+    tensor-core route, ``flash_attention`` the f32 one;
+    ``bucket_insert_pass`` is the fused route of ``slot_counts`` and
+    ``bucket_core_stats``, which also have standalone entries."""
     return dict(_build.ENTRY_LAUNCHES)
 
 

@@ -2,7 +2,8 @@
 
 Mirrors of ``repro.kernels.ref`` (``lsh_hash``, ``slot_counts``,
 ``bucket_core_stats``, ``eps_neighbor_counts``, ``attention``) that run
-on any device.  On a CPU tensor the
+on any device, and ``bucket_insert_pass``, the engine's insert batch as
+the two bucket kernels composed.  On a CPU tensor the
 wrappers in :mod:`.ops` run these; on the card they are what each CUDA
 kernel is held against: bit for bit, and ``attention`` within the
 reference tests' tolerances (its kernel sums in another f32 order).
@@ -107,6 +108,28 @@ def bucket_core_stats(slots: torch.Tensor, sizes: torch.Tensor, k: int):
     occ = padded[torch.where(valid, s, nb)]
     supp = (valid & (occ >= k)).sum(dim=-1, dtype=torch.int32)
     return supp, (supp > 0).to(torch.int32)
+
+
+def bucket_insert_pass(slots: torch.Tensor, sizes: torch.Tensor, k: int,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """An insert batch's bucket statistics against a size table.
+
+    slots: (n, t) int32 bucket-slot ids of the batch
+    sizes: (nb,) int32 occupancy per slot, updated IN PLACE:
+           ``sizes += slot_counts(slots, nb)``
+    returns ``out[:nb + n]`` (allocated when ``out`` is None), int32:
+    the new sizes, then each point's support against them
+    (``bucket_core_stats(slots, new sizes, k)[0]``).  Ids outside
+    ``[0, nb)`` contribute nothing to either."""
+    nb, n = sizes.shape[0], slots.shape[0]
+    sizes += slot_counts(slots, nb)
+    supp, _core = bucket_core_stats(slots, sizes, k)
+    if out is None:
+        out = torch.empty(nb + n, dtype=torch.int32, device=sizes.device)
+    out = out[:nb + n]
+    out[:nb] = sizes
+    out[nb:] = supp
+    return out
 
 
 #: rows of the (rows, n) distance block :func:`eps_neighbor_counts` holds

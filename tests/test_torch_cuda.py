@@ -22,7 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.api import ClusterConfig, build_index  # noqa: E402
+from repro_torch.api import (ClusterConfig, build_index,  # noqa: E402
+                             restore_index)
 from repro_torch.data import blobs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
@@ -87,6 +88,40 @@ def test_bucket_kernels_match_plain(cuda, n, t, nb):
                                    "flash_attention": 0}
 
 
+@pytest.mark.parametrize("n,t,nb", BUCKET_SHAPES + [(1000, 10, 3756)])
+def test_bucket_insert_pass_matches_plain(cuda, n, t, nb):
+    """The fused pass against its plain version, twice in a row on one
+    size table (the second call starts from the sizes the first left),
+    with ids out of range on both sides; the last shape is the main
+    path's batch and slot count.  One launch a call, counted under both
+    bucket kernels and under its own entry."""
+    rng = np.random.default_rng(n * 3 + nb)
+    table = torch.from_numpy(rng.integers(0, 12, nb).astype(np.int32))
+    a, b = table.to(cuda), table.to(cuda)
+    out = torch.full((nb + n + 5,), -1, dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    for call in range(2):
+        slots = torch.from_numpy(_slots(n, t, nb, n + nb + call)).to(cuda)
+        for k in (1, 9):
+            got = ops.bucket_insert_pass(slots, a, k=k, out=out)
+            want = ops.bucket_insert_pass(slots, b, k=k, impl="ref")
+            assert got.shape == (nb + n,)
+            assert torch.equal(got, want) and torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert int(out[nb + n:].min()) == -1  # nothing written past the pass
+    counts, entries = ops.launch_counts(), ops.entry_launch_counts()
+    assert counts["slot_counts"] == counts["bucket_core_stats"] == 4
+    assert entries["bucket_insert_pass"] == 4
+    assert entries["slot_counts"] == entries["bucket_core_stats"] == 0
+    # the plain version on the card equals the plain version on the CPU
+    c = table.clone()
+    for call in range(2):
+        slots = _slots(n, t, nb, n + nb + call)
+        for k in (1, 9):
+            ops.bucket_insert_pass(torch.from_numpy(slots), c, k=k)
+    assert torch.equal(c, a.cpu())
+
+
 @pytest.mark.parametrize("d", [1, 3, 4, 10, 16, 20, 54, 64, 96])
 @pytest.mark.parametrize("n", [1, 63, 64, 127, 128, 129, 255, 256, 257,
                                1000, 4097, 8193, 20_001])
@@ -131,6 +166,11 @@ def test_wrappers_reject_bad_arguments(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ops.bucket_core_stats(s.t(), torch.zeros(3, dtype=torch.int32,
                                                  device=cuda), k=1)
+    with pytest.raises(ValueError, match="at least 7"):
+        ops.bucket_insert_pass(s, torch.zeros(3, dtype=torch.int32,
+                                              device=cuda), k=1,
+                               out=torch.zeros(6, dtype=torch.int32,
+                                               device=cuda))
     with pytest.raises(TypeError):
         ops.eps_neighbor_counts(torch.zeros((4, 2), dtype=torch.float64,
                                             device=cuda), eps=1.0)
@@ -145,6 +185,10 @@ def test_wrappers_reject_bad_arguments(cuda):
 
 @pytest.mark.parametrize("orphans", [True, False])
 def test_soa_device_on_cuda_matches_host_soa(cuda, orphans):
+    """Inserts, batch and single deletes and a snapshot restored
+    mid-stream: the bucket kernels run once per insert batch, through the
+    fused pass only, and the mirror of the sizes stays equal to the host
+    table whenever it is fresh."""
     X, _ = blobs(n=3000, d=10, n_clusters=10, seed=1)
     cfg = ClusterConfig(d=10, k=10, t=10, eps=0.75, seed=1,
                         backend="soa-device", attach_orphans=orphans)
@@ -163,11 +207,25 @@ def test_soa_device_on_cuda_matches_host_soa(cuda, orphans):
             dev.delete_batch(victims)
             host.delete_batch(victims)
             assert sorted(dev.drain_deltas()) == sorted(host.drain_deltas())
+        if b % 1000 == 250:
+            for victim in dev.ids()[1::97]:
+                dev.delete(victim)
+                host.delete(victim)
+            assert sorted(dev.drain_deltas()) == sorted(host.drain_deltas())
+        if b == 1500:
+            dev = restore_index(dev.snapshot())
+            assert dev.engine.device.type == "cuda"
+            assert not dev.engine._dpass.fresh
+            assert dev.drain_deltas() == []  # starts the change feed
         assert dev.labels() == host.labels()
+        dev.check_invariants()  # a fresh mirror equals the host sizes
     counts = ops.launch_counts()
     assert counts == {"lsh_hash": 12, "slot_counts": 12,
                       "bucket_core_stats": 12, "eps_neighbor_counts": 0,
                       "flash_attention": 0}
+    entries = ops.entry_launch_counts()
+    assert entries["bucket_insert_pass"] == 12
+    assert entries["slot_counts"] == entries["bucket_core_stats"] == 0
     dev.check_invariants()
     for key, val in dev.snapshot()["state"].items():
         np.testing.assert_array_equal(val, host.snapshot()["state"][key])
