@@ -13,7 +13,8 @@ Phases, each of which raises on failure (exit code != 0):
              kernel's registers and spills (``-Xptxas -v``) and the
              ``HGMMA`` (wgmma) instructions in the SASS of the bf16
              flash kernel (``cuobjdump -sass``); a count of 0 fails, and
-             so does a spill in an ``eps_neighbor_counts`` kernel.
+             so does a spill in an ``eps_neighbor_counts`` kernel or in
+             the ``lsh_hash_resolve`` kernel.
 3. main    — the ``soa-device`` streaming engine through the public API:
              the paper's blobs set (n=200,000, d=10, 10 clusters) with
              k=10, t=10, eps=0.75, inserted in batches of 1000 with deltas
@@ -22,12 +23,17 @@ Phases, each of which raises on failure (exit code != 0):
              batches of 1000, then snapshot + restore.  The same stream
              runs through the host ``soa`` engine (no kernels); labels,
              deltas and the restored labels must be equal, and every
-             kernel must have launched: the bucket kernels once per
-             insert batch through the fused ``bucket_insert_pass``
-             route and never through their standalone entries, with no
-             size-table upload in the insert-only stream.  Prints
-             throughput, ARI and the host seconds of the two device
-             passes (``hash_pass_s``, ``stats_pass_s``).
+             kernel must have launched: ``lsh_hash`` once per insert
+             batch through the ``lsh_hash_resolve`` route (keys probed
+             against the device mirror of the bucket directory), the
+             bucket kernels once per insert batch through the fused
+             ``bucket_insert_pass`` route, none through a standalone
+             entry, with no size-table upload in the insert-only stream
+             and a directory upload only when the mirror grows.  Prints
+             throughput, ARI, the host seconds of the two device passes
+             (``hash_pass_s``: points to slots, the device pass and the
+             host lookup of its misses, ``resolver_s`` the latter;
+             ``stats_pass_s``) and the misses a batch.
 4. baselines — the paper's Table-2 streaming protocol at its default
              scale (``benchmarks/table2.py``, scale 0.1): blobs n=20,000,
              d=10, 10 clusters, k=10, t=10, eps=0.75, batches of 1000
@@ -69,7 +75,14 @@ Phases, each of which raises on failure (exit code != 0):
              bit-exact against its plain PyTorch version on the card,
              then timed with CUDA events against the plain version and,
              where one exists, a library call; the profiler gives each
-             kernel's device time per launch.  The bucket kernels run at
+             kernel's device time per launch.  ``lsh_hash_resolve`` runs
+             the main path's last batch against the directory it probed
+             (equal to the main path's keys and hits), the final
+             directory (equal to its slots) and a flush that erases ~10%
+             of it and one that reinserts half (tombstones in the probe
+             chains), then is timed on the final directory with and
+             without the last pass's update count, with its bytes bound
+             from the cells its probes read.  The bucket kernels run at
              the main path's last insert batch and slot count
              (out-of-range ids included); so does their fused insert
              pass, on fresh copies of the size table before that batch
@@ -84,14 +97,21 @@ Phases, each of which raises on failure (exit code != 0):
              of 100,000 x 54 in 7 clusters, eps 1.0; its mean count is
              printed), and over a sweep of n on the 128-point tile
              edges and d in {1, 3, 4, 16, 20, 54, 64, 96}.
-7. profile — device busy share of five more insert batches at the
-             main path's final state (torch.profiler), then the device
-             allocations and size-table uploads of three more batches'
-             stats passes.
+7. profile — device busy share and CUDA runtime calls a batch of five
+             more insert batches at the main path's final state
+             (torch.profiler); the device allocations and whole-table
+             uploads of three more batches' stats passes and hash passes;
+             the stats pass and the hash pass (points to slots) inside
+             the stream, each against its route before the device mirror,
+             in turns (old, new, new, old, 25 batches each); and the host
+             microseconds of a hash pass in the stream, under the
+             profiler, back to back, back to back after 64 MB of numpy
+             work, and through the old pageable route.
 
 The line before the last is one JSON object with a ``kernels`` list (all
-five kernels and the fused ``bucket_insert_pass`` route); the last line
-is ``{"ok": true, "device": {...}}``.
+five kernels and the ``lsh_hash_resolve`` and fused
+``bucket_insert_pass`` routes); the last line is ``{"ok": true,
+"device": {...}}``.
 ``--points`` cuts the main stream only (the cut is printed); d, k, t,
 eps and the batch never change.
 """
@@ -120,6 +140,10 @@ SCALAR_OPS_PER_S = 67e12 / 2
 KERNEL_SOURCES = {
     "lsh_hash": ("src/repro_torch/kernels/csrc/lsh_hash.cu",
                  "src/repro/kernels/lsh_hash.py:65"),
+    # the route of lsh_hash that the main path takes: the keys with their
+    # slots in a device mirror of the bucket directory
+    "lsh_hash_resolve": ("src/repro_torch/kernels/csrc/lsh_hash.cu",
+                         "src/repro/kernels/lsh_hash.py:65"),
     "slot_counts": ("src/repro_torch/kernels/csrc/bucket_ops.cu",
                     "src/repro/kernels/bucket_ops.py:117"),
     "bucket_core_stats": ("src/repro_torch/kernels/csrc/bucket_ops.cu",
@@ -138,9 +162,9 @@ KERNEL_SOURCES = {
 FLASH_F32_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 #: the kernels the main path (phase 3) runs
 MAIN_KERNELS = ("lsh_hash", "slot_counts", "bucket_core_stats")
-#: the C entry points the main path launches them through: the bucket
-#: kernels' standalone entries must not run there
-MAIN_ENTRIES = ("lsh_hash", "bucket_insert_pass")
+#: the C entry points the main path launches them through: the
+#: standalone entries of the three kernels must not run there
+MAIN_ENTRIES = ("lsh_hash_resolve", "bucket_insert_pass")
 # Table 2 at its default scale: benchmarks/table2.py run(scale=0.1) on
 # blobs, with benchmarks/common.py stream_eval's protocol
 BASELINES = ("naive", "emz-static", "emz-fixed")
@@ -266,17 +290,29 @@ def build_report() -> dict:
         raise AssertionError(f"no HGMMA in the bf16 flash kernel's SASS: "
                              f"{hgmma}")
     ptxas = ptxas_report(_build.build_log())
+    for name, count in (("eps_neighbor_counts", 3), ("lsh_hash_resolve", 1)):
+        found = {k: v for k, v in ptxas.items() if name in k}
+        if len(found) != count or any(
+                v.get("spill_stores", 1) or v.get("spill_loads", 1)
+                for v in found.values()):
+            raise AssertionError(f"{name} kernels missing or spilling: "
+                                 f"{found}")
     eps = {k: v for k, v in ptxas.items() if "eps_neighbor_counts" in k}
-    if len(eps) != 3 or any(v.get("spill_stores", 1) or
-                            v.get("spill_loads", 1) for v in eps.values()):
-        raise AssertionError(f"eps_neighbor_counts kernels missing or "
-                             f"spilling: {eps}")
     return {"ptxas": ptxas, "hgmma": hgmma, "eps_ptxas": eps}
 
 
 # ---------------------------------------------------------------------- #
 # main path
 # ---------------------------------------------------------------------- #
+def dir_cells(host_dir):
+    """A host bucket directory as (m, 4) int32 cells ``[key a, key b,
+    table, slot]``, the updates that load it into an empty table."""
+    from repro_torch.core.soa import directory_cells
+
+    return directory_cells((i, k, s) for i, t in enumerate(host_dir)
+                           for k, s in t.items())
+
+
 def run_main_path(n_points: int, device: str):
     """Drive soa-device (on ``device``) and the host soa engine through
     the same stream; returns (metrics, last-batch inputs for phase 4)."""
@@ -300,9 +336,12 @@ def run_main_path(n_points: int, device: str):
     host.drain_deltas()
 
     # host clock around the engine's two device passes (uploads, kernel
-    # launches, downloads) — the device-path share of the wall time
+    # launches, downloads) and the host lookup of the hash pass's misses
+    # — the device-path share of the wall time
     eng = dev.engine
-    pass_s = {"hash": 0.0, "stats": 0.0}
+    pass_s = {"hash": 0.0, "resolve": 0.0, "stats": 0.0}
+    misses = []  # slots allocated a batch: the misses the host resolved
+    seen = {}
 
     def timed(fn, key):
         def run(*a, **kw):
@@ -313,7 +352,17 @@ def run_main_path(n_points: int, device: str):
                 pass_s[key] += time.perf_counter() - t0
         return run
 
+    def resolve(keys32, hits=None):
+        # the hits as the pass returned them (the lookup fills the misses)
+        seen["keys"], seen["hits"] = keys32, hits.copy()
+        before = eng._n_slots - len(eng._free_slots)
+        slots = resolve_inner(keys32, hits)
+        misses.append(eng._n_slots - len(eng._free_slots) - before)
+        return slots
+
+    resolve_inner = eng._resolve_slots
     eng._hash_batch = timed(eng._hash_batch, "hash")
+    eng._resolve_slots = timed(resolve, "resolve")
     eng._batch_stats = timed(eng._batch_stats, "stats")
 
     ops.reset_launch_counts()
@@ -324,6 +373,8 @@ def run_main_path(n_points: int, device: str):
     n_batches = (n_points + BATCH - 1) // BATCH
     for b in range(n_batches):
         Xb = X[b * BATCH:(b + 1) * BATCH]
+        if b == n_batches - 1:  # the directory the last batch probes
+            dir_before = dir_cells(eng._dir)
         t0 = time.perf_counter()
         ids = dev.insert_batch(Xb)
         deltas = dev.drain_deltas()
@@ -354,10 +405,21 @@ def run_main_path(n_points: int, device: str):
                     "sizes_before": sizes - np.bincount(
                         slots.ravel(), minlength=ns).astype(np.int32),
                     "support": eng._support[rows].copy(),
+                    # the hash pass's keys and hits of the batch, the
+                    # directory before and after it, the mirror's size
+                    "keys": seen["keys"], "hits": seen["hits"],
+                    "dir_before": dir_before,
+                    "dir_after": dir_cells(eng._dir),
+                    "dir_cap": eng._hpass.cap,
+                    "n_updates": eng._hpass.n_updates,
                     "eta": eng.lsh.eta.astype(np.float32),
                     "mixers": eng.lsh.mixers.copy(),
                     "inv_cell": eng.lsh.inv_cell}
     size_uploads_ins = eng._dpass.n_size_uploads
+    hp = eng._hpass
+    dir_ins = {"passes": hp.n_passes, "uploads": hp.n_dir_uploads,
+               "growths": hp.n_dir_growths, "cap": hp.cap}
+    hp.check(eng._dir)  # the mirror holds the directory
     labels_ins = dev.labels()
     if labels_ins != host.labels():
         raise AssertionError("labels() differ after the inserts")
@@ -387,6 +449,7 @@ def run_main_path(n_points: int, device: str):
     if rest.labels() != labels_del:
         raise AssertionError("labels differ after snapshot + restore")
     wall = time.perf_counter() - t_path
+    hash_s = pass_s["hash"] + pass_s["resolve"]
     launches = ops.launch_counts()
     entries = ops.entry_launch_counts()
     last["restored"] = rest
@@ -394,16 +457,23 @@ def run_main_path(n_points: int, device: str):
         raise AssertionError(f"{eng._dpass.n_passes} stats passes and "
                              f"{size_uploads_ins} size-table uploads in "
                              f"{n_batches} insert batches")
+    if dir_ins["passes"] != n_batches or \
+            dir_ins["uploads"] != dir_ins["growths"]:
+        raise AssertionError(f"{dir_ins['passes']} hash passes and "
+                             f"{dir_ins['uploads']} directory uploads for "
+                             f"{dir_ins['growths']} growths in {n_batches} "
+                             f"insert batches")
     if device != "cpu":
         missing = [k for k in MAIN_KERNELS if launches[k] <= 0]
         if missing:
             raise AssertionError(f"kernels never launched on the main "
                                  f"path: {missing}")
-        want = {"bucket_insert_pass": n_batches, "slot_counts": 0,
+        want = {"lsh_hash_resolve": n_batches, "lsh_hash": 0,
+                "bucket_insert_pass": n_batches, "slot_counts": 0,
                 "bucket_core_stats": 0}
         got = {k: entries[k] for k in want}
         if got != want:
-            raise AssertionError(f"bucket kernel entries on the main path: "
+            raise AssertionError(f"kernel entries on the main path: "
                                  f"{got}, expected {want}")
     metrics = {
         "points": n_points, "cut": n_points != FULL_POINTS,
@@ -413,10 +483,24 @@ def run_main_path(n_points: int, device: str):
         "delete_pts_per_s": len(victims) / del_s if del_s else None,
         "insert_s": ins_s, "delete_s": del_s, "query_s": query_s,
         "main_path_wall_s": wall,
-        "device_pass_s": pass_s["hash"] + pass_s["stats"],
-        "device_pass_share_of_insert": (pass_s["hash"] + pass_s["stats"])
-        / ins_s,
-        "hash_pass_s": pass_s["hash"], "stats_pass_s": pass_s["stats"],
+        # the hash pass from points to slots: the device pass, then the
+        # host's allocation of the misses (resolver_s)
+        "device_pass_s": hash_s + pass_s["stats"],
+        "device_pass_share_of_insert": (hash_s + pass_s["stats"]) / ins_s,
+        "hash_pass_s": hash_s, "resolver_s": pass_s["resolve"],
+        "hash_pass_ms_per_batch": hash_s / n_batches * 1e3,
+        "resolver_ms_per_batch": pass_s["resolve"] / n_batches * 1e3,
+        "misses_per_batch": {
+            "mean": float(np.mean(misses)),
+            "median": float(np.median(misses)),
+            "from_batch_5_mean": float(np.mean(misses[5:] or [0])),
+            "at": {str(i): misses[i] for i in (0, 1, 5, 20, 100, 199)
+                   if i < len(misses)}},
+        "misses": int(np.sum(misses)),
+        "dir_uploads_during_inserts": dir_ins["uploads"],
+        "dir_growths": dir_ins["growths"], "dir_cap": dir_ins["cap"],
+        "hash_passes": dir_ins["passes"],
+        "stats_pass_s": pass_s["stats"],
         "stats_pass_ms_per_batch": pass_s["stats"] / n_batches * 1e3,
         "stats_pass_share_of_insert": pass_s["stats"] / ins_s,
         "stats_passes": eng._dpass.n_passes,
@@ -668,6 +752,10 @@ def check_kernels(last, launches, card: str, x_base, build):
                                         impl="ref")),
            nb, n * t * D * 8 + n * t * 20, None)
 
+    # -- lsh_hash_resolve: the main path's hash pass on its last batch
+    args, extra = resolve_check(last, x, eta, mixers, build)
+    record("lsh_hash_resolve", *args, **extra)
+
     # -- slot_counts: reads n*t ids, writes n_slots counts; one compare
     #    and one atomic add per id
     err = 0
@@ -742,8 +830,8 @@ def check_kernels(last, launches, card: str, x_base, build):
                                                            k=K),
         "bucket_insert_pass": lambda: ops.bucket_insert_pass(
             slots, scratch, k=K, out=buf)})
-    for k in out:
-        k["device_ms"] = dev_ms[k["name"]]
+    for k in out:  # lsh_hash_resolve's was timed on its own
+        k.setdefault("device_ms", dev_ms.get(k["name"]))
     rt = out[-1]["round_trip"]
     print(f"bucket_insert_pass at {n} x {t}, {ns} slots: {out[-1]['ms']:.5f}"
           f" ms per call, device {dev_ms['bucket_insert_pass']} ms; one "
@@ -805,6 +893,140 @@ def check_kernels(last, launches, card: str, x_base, build):
     if bad_k:
         raise AssertionError(f"kernels disagree with their plain "
                              f"versions: {bad_k}")
+    return out
+
+
+def resolve_check(last, x, eta, mixers, build):
+    """``lsh_hash_resolve`` at the main path's last batch, bit-exact
+    against its plain version: on the directory that batch probed (its
+    keys and hits must equal what the main path got), on the final
+    directory (every key a hit, the main path's slots), and through a
+    flush that erases ~10% of the final entries, then one that reinserts
+    half of them with their freed slots swapped (tombstones in the probe
+    chains); then timed on the final directory with no update (CUDA
+    events, profiler) and, on the device, with the last pass's update
+    count re-applied.  Returns ``record``'s arguments."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    dev = x.device
+    inv, cap = last["inv_cell"], last["dir_cap"]
+    n, t = last["slots"].shape
+    m = n * t
+    kw = {"inv_cell": inv}
+
+    def table(cells):
+        """A table of the main path's capacity loaded with ``cells``
+        through the plain version (the kernel's own loads are compared
+        below)."""
+        tab = torch.full((cap, 4), -1, dtype=torch.int32, device=dev)
+        ops.lsh_hash_resolve(x[:0], eta, mixers, directory=tab,
+                             updates=torch.from_numpy(cells).to(dev),
+                             impl="ref", **kw)
+        return tab
+
+    def both(steps):
+        """Each step's updates through the kernel and the plain version,
+        each on its own empty table; (max abs error, kernel's outputs,
+        kernel's table)."""
+        tabs = [torch.full((cap, 4), -1, dtype=torch.int32, device=dev)
+                for _ in range(2)]
+        err, outs = 0, []
+        for cells in steps:
+            upd = torch.from_numpy(cells).to(dev)
+            got = ops.lsh_hash_resolve(x, eta, mixers, directory=tabs[0],
+                                       updates=upd.clone(), **kw)
+            want = ops.lsh_hash_resolve(x, eta, mixers, directory=tabs[1],
+                                        updates=upd.clone(), impl="ref",
+                                        **kw)
+            err = max(err, max_abs_err(got, want))
+            outs.append(got.cpu().numpy())
+        if live_cells(tabs[0]) != live_cells(tabs[1]):
+            raise AssertionError("lsh_hash_resolve's table differs from its "
+                                 "plain version's")
+        return err, outs, tabs[0]
+
+    err0, (probed,), _ = both([last["dir_before"]])
+    if not (np.array_equal(probed[:2 * m], last["keys"].ravel())
+            and np.array_equal(probed[2 * m:], last["hits"].ravel())):
+        raise AssertionError("lsh_hash_resolve differs from the main path's "
+                             "hash pass of its last batch")
+    final = last["dir_after"]
+    err1, (full,), _ = both([final])
+    if not np.array_equal(full[2 * m:], last["slots"].ravel()):
+        raise AssertionError("lsh_hash_resolve on the final directory "
+                             "differs from the main path's slots")
+    rng = np.random.default_rng(11)
+    gone = final[rng.random(len(final)) < 0.1]
+    erase, back = gone.copy(), gone[::2].copy()
+    erase[:, 3] = -1
+    back[:, 3] = np.roll(back[:, 3], 1)
+    err2, outs, tab = both([final, erase, back])
+    misses = int((outs[1][2 * m:] < 0).sum())
+
+    # timed on the final directory, probes only; the plain version with no
+    # update leaves the table as it is
+    fin = table(final)
+    none = torch.zeros((0, 4), dtype=torch.int32, device=dev)
+    buf = torch.empty(3 * m, dtype=torch.int32, device=dev)
+    ms = time_ms(lambda: ops.lsh_hash_resolve(x, eta, mixers, directory=fin,
+                                              updates=none, out=buf, **kw))
+    plain_ms = time_ms(lambda: ops.lsh_hash_resolve(
+        x, eta, mixers, directory=fin, updates=none, out=buf, impl="ref",
+        **kw), reps=20, warmup=2)
+    # the last pass's update count, as upserts of entries the table holds
+    # (found live, so the table does not change); the copy that restores
+    # the consumed list each call is another device function
+    upd = torch.from_numpy(final[:max(1, last["n_updates"])]).to(dev)
+    scratch = upd.clone()
+
+    def with_updates():
+        scratch.copy_(upd)
+        ops.lsh_hash_resolve(x, eta, mixers, directory=fin, updates=scratch,
+                             out=buf, **kw)
+    dev_ms = kernel_device_ms({"lsh_hash_resolve": lambda: ops.
+                               lsh_hash_resolve(x, eta, mixers,
+                                                directory=fin, updates=none,
+                                                out=buf, **kw)})
+    dev_upd = kernel_device_ms({"lsh_hash_resolve": with_updates})
+    # bytes: x, eta and mixers read, keys and slots written, each directory
+    # cell the probes read once; operations: the keys' (per (point, table,
+    # dim) add, mul, floor, convert, 2 mul, 2 add; ~10 per avalanche, two
+    # per (point, table)) and ~8 a cell read (4 compares, the slot tests,
+    # the next position)
+    k32 = torch.from_numpy(last["keys"]).to(dev)
+    tabs = torch.arange(t, dtype=torch.int32, device=dev).expand(n, t)
+    _found, steps = ref.probe(fin, tabs, k32[..., 0], k32[..., 1])
+    reads = steps.reshape(-1)
+    home = (k32[..., 0].reshape(-1).to(torch.int64)
+            & (cap - 1)).repeat_interleave(reads)
+    # the j-th cell of a probe is home + j
+    j = torch.arange(int(reads.sum()), device=dev) - (
+        torch.cumsum(reads, 0) - reads).repeat_interleave(reads)
+    cells = torch.unique((home + j) & (cap - 1)).numel()
+    nbytes = (x.numel() + eta.numel() + mixers.numel() + 3 * m
+              + 4 * cells) * 4
+    nops = m * D * 8 + m * 20 + 8 * int(reads.sum())
+    ptx = {k: v for k, v in build["ptxas"].items() if "lsh_hash" in k}
+    return (max(err0, err1, err2), ms, plain_ms, nbytes, nops, None), dict(
+        route_of=["lsh_hash"], device_ms=dev_ms["lsh_hash_resolve"],
+        device_ms_with_updates=dev_upd["lsh_hash_resolve"],
+        updates_timed=len(upd), dir_cap=cap, dir_entries=len(final),
+        cells_read=cells, probe_reads_mean=float(reads.double().mean()),
+        probe_reads_max=int(reads.max()), hits_last_batch=int(
+            (last["hits"] >= 0).sum()), misses_after_erase=misses,
+        erased=len(gone), reinserted=len(back), ptxas=ptx)
+
+
+def live_cells(tab) -> dict:
+    """A directory table's live cells {(table, key a, key b): slot}."""
+    c = tab.cpu().numpy()
+    c = c[c[:, 3] >= 0]
+    out = {(int(r[2]), int(r[0]), int(r[1])): int(r[3]) for r in c}
+    if len(out) != len(c):
+        raise AssertionError("a directory table holds a key twice")
     return out
 
 
@@ -931,39 +1153,225 @@ def stats_ab_in_stream(index, batches: int = 25):
     return out
 
 
-def stats_pass_allocations(index, batches: int = 3):
-    """Device allocations and size-table uploads of each stats pass in
-    ``batches`` more insert batches into ``index`` (deltas drained)."""
+def pass_allocations(index, which: str = "stats", batches: int = 3):
+    """Device allocations and whole-table uploads of each stats pass (or
+    hash pass, ``which="hash"``) in ``batches`` more insert batches into
+    ``index`` (deltas drained)."""
     import numpy as np
     import torch
 
     from repro_torch.data import blobs
 
     eng = index.engine
-    Xn, _ = blobs(n=batches * BATCH, d=D, n_clusters=10, seed=SEED + 98)
+    Xn, _ = blobs(n=batches * BATCH, d=D, n_clusters=10,
+                  seed=SEED + (98 if which == "stats" else 96))
     Xn = np.asarray(Xn)
     allocs, uploads = [], []
-    inner = eng._batch_stats
+    method = "_batch_stats" if which == "stats" else "_hash_batch"
+    inner = getattr(eng, method)
+
+    def count():
+        return (eng._dpass.n_size_uploads if which == "stats"
+                else eng._hpass.n_dir_uploads)
 
     def counted(*a, **kw):
         a0 = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
-        u0 = eng._dpass.n_size_uploads
+        u0 = count()
         try:
             return inner(*a, **kw)
         finally:
             allocs.append(torch.cuda.memory_stats().get(
                 "allocation.all.allocated", 0) - a0)
-            uploads.append(eng._dpass.n_size_uploads - u0)
+            uploads.append(count() - u0)
 
-    eng._batch_stats = counted
+    setattr(eng, method, counted)
     try:
         for b in range(batches):
             index.insert_batch(Xn[b * BATCH:(b + 1) * BATCH])
             index.drain_deltas()
     finally:
-        del eng._batch_stats
+        delattr(eng, method)
     return {"batches": batches, "device_allocations": allocs,
-            "size_uploads": uploads}
+            "size_uploads" if which == "stats" else "dir_uploads": uploads}
+
+
+def old_hash_pass(eng):
+    """The engine's hash pass before the directory mirror: a pageable
+    upload of the points, ``ops.lsh_hash``, a synchronising download of
+    the keys, and every lookup left to the host (no hits)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    def run(X):
+        X32 = np.ascontiguousarray(X, dtype=np.float32)
+        return ops.lsh_hash(torch.from_numpy(X32).to(eng.device),
+                            eng._eta_dev, eng._mix_dev,
+                            inv_cell=eng.lsh.inv_cell).cpu().numpy(), None
+    return run
+
+
+def hash_ab_in_stream(index, batches: int = 25):
+    """The hash pass inside the insert stream, points to slots, the old
+    route (``old_hash_pass`` and the host lookup of every key) against the
+    engine's (``DeviceHashPass`` and the host lookup of the misses), in
+    turns on one card (old, new, new, old): each turn inserts ``batches``
+    new batches of 1000 into ``index`` (deltas drained) and records per
+    batch the host ms of the hash pass with the lookup and of
+    ``insert_batch`` + ``drain_deltas``.  The old turns allocate slots
+    through the same seam, so the mirror stays coherent across turns."""
+    import numpy as np
+
+    from repro_torch.data import blobs
+
+    eng = index.engine
+    Xn, _ = blobs(n=4 * batches * BATCH, d=D, n_clusters=10, seed=SEED + 95)
+    Xn = np.asarray(Xn)
+    hash_ms = []
+    new_hash, resolve = eng._hash_batch, eng._resolve_slots
+
+    def timed_resolve(keys32, hits=None):
+        try:
+            return resolve(keys32, hits)
+        finally:
+            hash_ms.append((time.perf_counter() - t_hash[0]) * 1e3)
+
+    t_hash = [0.0]
+
+    def timed(fn):
+        def run(X):
+            t_hash[0] = time.perf_counter()
+            return fn(X)
+        return run
+
+    out = {"batches_per_turn": batches, "order": "old, new, new, old",
+           "old": [], "new": []}
+    eng._resolve_slots = timed_resolve
+    try:
+        for turn, name in enumerate(("old", "new", "new", "old")):
+            eng._hash_batch = timed(old_hash_pass(eng) if name == "old"
+                                    else new_hash)
+            hash_ms.clear()
+            ins_ms = []
+            for b in range(batches):
+                j = (turn * batches + b) * BATCH
+                t0 = time.perf_counter()
+                index.insert_batch(Xn[j:j + BATCH])
+                index.drain_deltas()
+                ins_ms.append((time.perf_counter() - t0) * 1e3)
+            out[name].append({
+                "hash_ms_median": float(np.median(hash_ms)),
+                "hash_ms_mean": float(np.mean(hash_ms)),
+                "insert_ms_median": float(np.median(ins_ms)),
+                "insert_ms_mean": float(np.mean(ins_ms))})
+    finally:
+        del eng._hash_batch, eng._resolve_slots
+    return out
+
+
+def runtime_call_study(index, batches: int = 10, reps: int = 50):
+    """Why a CUDA runtime call costs more host time inside the insert
+    stream than back to back.  Host microseconds of the engine's hash
+    pass (``_hash_batch``: upload, launch, download, synchronise) per
+    pass: (1) inside the stream, ``batches`` insert batches; (2) the same
+    under torch.profiler, with the runtime calls it traced per pass;
+    (3) back to back on one batch; (4) back to back with ~64 MB of numpy
+    work between passes (cold CPU caches, as after an insert batch's host
+    work); (5) the old route's pass (pageable copies) back to back; and
+    the profiler's runtime calls per pass back to back; then the host
+    microseconds of one runtime call alone (a synchronise of the idle
+    stream, a 4-byte copy from pinned memory), warm, after the numpy
+    work, and under the profiler."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import blobs
+
+    eng = index.engine
+    Xn, _ = blobs(n=2 * batches * BATCH, d=D, n_clusters=10,
+                  seed=SEED + 94)
+    Xn = np.asarray(Xn)
+    inner = eng._hash_batch
+    pass_us = []
+
+    def timed(X):
+        t0 = time.perf_counter()
+        try:
+            return inner(X)
+        finally:
+            pass_us.append((time.perf_counter() - t0) * 1e6)
+
+    def stream(lo):
+        pass_us.clear()
+        for b in range(lo, lo + batches):
+            index.insert_batch(Xn[b * BATCH:(b + 1) * BATCH])
+            index.drain_deltas()
+        return float(np.median(pass_us))
+
+    def runtime_calls(prof):
+        calls = [e for e in prof.events()
+                 if e.device_type == DeviceType.CPU
+                 and e.name.startswith("cuda")]
+        return len(calls), sum(e.time_range.elapsed_us() for e in calls)
+
+    out = {"batches": batches, "reps": reps}
+    eng._hash_batch = timed
+    try:
+        out["stream_us"] = stream(0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out["stream_profiled_us"] = stream(batches)
+        n_calls, call_us = runtime_calls(prof)
+    finally:
+        del eng._hash_batch
+    out["stream_profiled_calls_per_batch"] = n_calls / batches
+    out["stream_profiled_us_per_call"] = call_us / max(n_calls, 1)
+    X = Xn[:BATCH]
+    hp = eng._hpass
+    junk = np.zeros(8 << 20)  # 64 MB
+
+    def per_pass(fn, flush=False):
+        fn()
+        times = []
+        for _ in range(reps):
+            if flush:
+                np.add(junk, 1.0, out=junk)
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e6)
+        return float(np.median(times))
+
+    new = lambda: hp.run(X, eng._dir)  # noqa: E731
+    old = lambda: old_hash_pass(eng)(X)  # noqa: E731
+    out["back_to_back_us"] = per_pass(new)
+    out["back_to_back_cold_us"] = per_pass(new, flush=True)
+    out["old_back_to_back_us"] = per_pass(old)
+    out["old_back_to_back_cold_us"] = per_pass(old, flush=True)
+    for name, fn in (("new", new), ("old", old)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        n_calls, call_us = runtime_calls(prof)
+        out[f"{name}_calls_per_pass"] = n_calls / reps
+        out[f"{name}_back_to_back_profiled_us_per_call"] = \
+            call_us / max(n_calls, 1)
+    src = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+    dst = torch.zeros(1, dtype=torch.int32, device=eng.device)
+    stream = torch.cuda.current_stream(eng.device)
+    for name, fn in (("sync", stream.synchronize),
+                     ("copy", lambda: dst.copy_(src, non_blocking=True))):
+        out[f"{name}_call_us"] = per_pass(fn)
+        out[f"{name}_call_cold_us"] = per_pass(fn, flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            out[f"{name}_call_profiled_us"] = per_pass(fn)
+        stream.synchronize()
+    return out
 
 
 def bound(nbytes: int, nops: int):
@@ -1644,8 +2052,8 @@ def main(argv=None) -> int:
     launches = dict(metrics["launches"])
     launches["eps_neighbor_counts"] = \
         base["launches"]["eps_neighbor_counts"]
-    launches["bucket_insert_pass"] = \
-        metrics["entry_launches"]["bucket_insert_pass"]
+    for entry in MAIN_ENTRIES:
+        launches[entry] = metrics["entry_launches"][entry]
     kernels = check_kernels(last, launches, card, x_base, build) + [flash]
     share = sum(k["launches"] * k["ms"] for k in kernels
                 if k["name"] in MAIN_ENTRIES) / 1e3 / metrics["insert_s"]
@@ -1655,8 +2063,14 @@ def main(argv=None) -> int:
     # 7. where the device time goes in a few insert batches at the main
     #    path's final state (the restored index; launches already read)
     window = profile_insert_window(last["restored"])
-    window["stats_pass"] = stats_pass_allocations(last["restored"])
+    window["runtime_calls_per_batch"] = sum(
+        c["calls"] for c in window["host_runtime_calls"].values()) / \
+        window["batches"]
+    window["stats_pass"] = pass_allocations(last["restored"])
+    window["hash_pass"] = pass_allocations(last["restored"], "hash")
     window["stats_in_stream"] = stats_ab_in_stream(last["restored"])
+    window["hash_in_stream"] = hash_ab_in_stream(last["restored"])
+    window["runtime_calls"] = runtime_call_study(last["restored"])
     window["card"] = card
     print("profile " + json.dumps(window), flush=True)
     print(card, flush=True)

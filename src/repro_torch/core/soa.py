@@ -1,16 +1,22 @@
 """SoADynamicDBSCAN — the vectorised structure-of-arrays engine core.
 
 The port of ``repro.core.soa``: the same host structures and event
-replay, with the per-batch array passes (``lsh_hash``, then
-``slot_counts`` and ``bucket_core_stats`` fused into one
-``bucket_insert_pass``) run through :mod:`repro_torch.kernels.ops` on
-torch tensors on the engine's ``device`` when ``use_device`` is set — the
-hand-written CUDA kernels on ``"cuda"`` (the default), their plain
-PyTorch versions on ``"cpu"``.  The stats pass keeps a mirror of the
-bucket sizes on the device (:class:`DeviceInsertPass`), so an insert
-batch uploads its slots and downloads the new sizes and support once;
-the host sizes stay the source of truth, and every other host change of
-them marks the mirror stale (``_sizes_changed``).
+replay, with the per-batch array passes (``lsh_hash`` fused with the
+directory lookups into ``lsh_hash_resolve``, then ``slot_counts`` and
+``bucket_core_stats`` fused into one ``bucket_insert_pass``) run through
+:mod:`repro_torch.kernels.ops` on torch tensors on the engine's
+``device`` when ``use_device`` is set — the hand-written CUDA kernels on
+``"cuda"`` (the default), their plain PyTorch versions on ``"cpu"``.
+Each pass keeps a mirror of host state on the device.  The hash pass
+(:class:`DeviceHashPass`) mirrors the bucket directory: an insert batch
+uploads its points with the directory's pending changes and downloads
+the keys with the slots of every key the directory already holds, and
+the host looks up only the misses.  The stats pass
+(:class:`DeviceInsertPass`) mirrors the bucket sizes: the batch uploads
+its slots and downloads the new sizes and support once.  The host
+structures stay the source of truth; a change of a directory key reaches
+the mirror through ``_dir_changed``, and every host change of the sizes
+outside the pass marks that mirror stale (``_sizes_changed``).
 
 Same clustering as ``repro.core.dynamic_dbscan.DynamicDBSCAN``
 (Definition 4 cores, Thm-2 component structure, identical border-point
@@ -26,9 +32,10 @@ per-bucket Python objects walked point-by-point, the engine keeps
     determined* chain edges (see below) instead of an eagerly-maintained
     Euler-tour forest.
 
-``add_batch`` is one vectorised pass per batch — hash kernel → slot
-resolution → occupancy deltas → support gather → core transitions
-(the ``repro_torch.kernels`` bucket kernels on the device path) — with
+``add_batch`` is one vectorised pass per batch — hash kernel with the
+directory probes → slot allocation for the misses → occupancy deltas →
+support gather → core transitions (the ``repro_torch.kernels`` kernels
+on the device path) — with
 per-point Python work only for the *events* of the sequential
 semantics: threshold crossings, orphan grabs, and border attachment.
 
@@ -195,6 +202,157 @@ class DeviceInsertPass:
         assert not mirror[ns:].any()
 
 
+def directory_cells(entries: Iterable[Tuple[int, bytes, int]]
+                    ) -> np.ndarray:
+    """(table, 8-byte key, slot) triples -> (m, 4) int32 directory cells
+    ``[key a, key b, table, slot]``."""
+    entries = list(entries)
+    cells = np.empty((len(entries), 4), np.int32)
+    if entries:
+        cells[:, :2] = np.frombuffer(b"".join(e[1] for e in entries),
+                                     np.int32).reshape(-1, 2)
+        cells[:, 2] = [e[0] for e in entries]
+        cells[:, 3] = [e[2] for e in entries]
+    return cells
+
+
+class DeviceHashPass:
+    """An insert batch's keys and their directory slots on a device,
+    against a device mirror of a host bucket directory.
+
+    The mirror is an open-addressing table of ``[key a, key b, table,
+    slot]`` cells (``ops.lsh_hash_resolve``).  The host directory stays
+    the source of truth: each change of one of its keys is recorded
+    (:meth:`record`; an insert and an erase of one key before a pass net
+    out in one pending map) and applied on the device at the start of the
+    next pass; a wholesale change (:meth:`mark_stale`) makes the next pass
+    upload the whole directory into an emptied table, and so does growth:
+    when live cells plus tombstones could pass half the capacity, the
+    table is rebuilt at four times the live count, rounded up to a power
+    of two.  A pass is one upload of the points and the pending updates
+    (from pinned memory on ``"cuda"``), one launch, which applies the
+    updates, hashes the points and probes the table, and one synchronising
+    download of the packed [keys | slots].  Its buffers persist and grow
+    by doubling, so a pass allocates nothing on the device unless the
+    table grows.  On ``"cpu"`` the same steps run the plain version on
+    plain tensors (pinned memory needs a CUDA build of torch).
+    """
+
+    def __init__(self, device: torch.device, eta: torch.Tensor,
+                 mixers: torch.Tensor, inv_cell: float):
+        self.device = device
+        self._pinned = device.type == "cuda"
+        self.eta, self.mixers, self.inv_cell = eta, mixers, inv_cell
+        # an empty table; the first rebuild sizes it from the directory
+        self.table = torch.full((1024, 4), -1, dtype=torch.int32,
+                                device=device)
+        self.fresh = True  # mirror + pending == host directory
+        self.pending: Dict[Tuple[int, bytes], int] = {}
+        self.used = 0  # bound on the table's non-empty cells
+        self._in_h = self._in_d = self._out_h = self._out_d = None
+        self.n_passes = 0
+        self.n_updates = 0   # updates the last pass applied
+        self.n_dir_uploads = 0  # whole-directory uploads (stale or growth)
+        self.n_dir_growths = 0
+
+    @property
+    def cap(self) -> int:
+        return self.table.shape[0]
+
+    def record(self, table: int, key: bytes, slot: int) -> None:
+        """Host directory change: (table, key) -> slot, -1 for erased."""
+        if self.fresh:
+            self.pending[(table, key)] = slot
+
+    def mark_stale(self) -> None:
+        self.fresh = False
+        self.pending.clear()
+
+    def _grow(self, buf: Optional[torch.Tensor], need: int,
+              host: bool) -> torch.Tensor:
+        if buf is not None and buf.numel() >= need:
+            return buf
+        cap = 1 << max(10, (need - 1).bit_length())
+        if host:
+            return torch.empty(cap, dtype=torch.int32,
+                               pin_memory=self._pinned)
+        return torch.empty(cap, dtype=torch.int32, device=self.device)
+
+    def _updates(self, host_dir: List[Dict[bytes, int]]) -> np.ndarray:
+        """The pending updates as cells, or the whole host directory into
+        an emptied (and, past half full, grown) table."""
+        n_new = sum(s >= 0 for s in self.pending.values())
+        if self.fresh and self.used + n_new <= self.cap // 2:
+            self.used += n_new
+            return directory_cells(
+                (i, k, s) for (i, k), s in self.pending.items())
+        live = sum(len(t) for t in host_dir)
+        cap = max(self.cap, 1 << max(0, (4 * live - 1).bit_length()))
+        if cap > self.cap:
+            self.table = torch.empty((cap, 4), dtype=torch.int32,
+                                     device=self.device)
+            self.n_dir_growths += 1
+        self.table.fill_(-1)
+        self.fresh = True
+        self.used = live
+        self.n_dir_uploads += 1
+        return directory_cells((i, k, s) for i, t in enumerate(host_dir)
+                               for k, s in t.items())
+
+    def run(self, X: np.ndarray, host_dir: List[Dict[bytes, int]]
+            ) -> Tuple[np.ndarray, np.ndarray]:
+        """(B, d) points -> ((B, t, 2) int32 keys, (B, t) int32 slots of
+        the keys ``host_dir`` holds, -1 for the others)."""
+        B, d = X.shape
+        t = self.eta.shape[0]
+        upd = self._updates(host_dir)
+        self.pending.clear()
+        nu = len(upd)
+        xw = -(-B * d // 4) * 4  # the updates start 16-byte aligned
+        m = B * t
+        self._in_h = self._grow(self._in_h, xw + 4 * nu, True)
+        self._in_d = self._grow(self._in_d, xw + 4 * nu, False)
+        self._out_h = self._grow(self._out_h, 3 * m, True)
+        self._out_d = self._grow(self._out_d, 3 * m, False)
+        staged = self._in_h.numpy()
+        staged[:B * d].view(np.float32).reshape(B, d)[...] = X
+        staged[xw:xw + 4 * nu] = upd.ravel()
+        dev_in = self._in_d[:xw + 4 * nu]
+        dev_in.copy_(self._in_h[:xw + 4 * nu], non_blocking=True)
+        dout = ops.lsh_hash_resolve(
+            dev_in[:B * d].view(torch.float32).view(B, d), self.eta,
+            self.mixers, inv_cell=self.inv_cell, directory=self.table,
+            updates=dev_in[xw:].view(nu, 4), out=self._out_d[:3 * m])
+        self._out_h[:3 * m].copy_(dout, non_blocking=True)
+        if self._pinned:
+            torch.cuda.current_stream(self.device).synchronize()
+        res = self._out_h.numpy()
+        self.n_passes += 1
+        self.n_updates = nu
+        return (res[:2 * m].reshape(B, t, 2).copy(),
+                res[2 * m:3 * m].reshape(B, t).copy())
+
+    def check(self, host_dir: List[Dict[bytes, int]]) -> None:
+        """A fresh mirror, with the pending updates applied, holds exactly
+        the host directory's (table, key, slot) entries, each once."""
+        if not self.fresh:
+            return
+        cells = self.table.cpu().numpy()
+        live = cells[cells[:, 3] >= 0]
+        raw = np.ascontiguousarray(live[:, :2]).tobytes()
+        mirror = {(int(c[2]), raw[8 * j:8 * j + 8]): int(c[3])
+                  for j, c in enumerate(live)}
+        assert len(mirror) == len(live), "a key held twice"
+        for key, s in self.pending.items():
+            if s >= 0:
+                mirror[key] = s
+            else:
+                mirror.pop(key, None)
+        assert mirror == {(i, k): s for i, t in enumerate(host_dir)
+                          for k, s in t.items()}
+        assert self.used >= int((cells[:, 3] != -1).sum())
+
+
 class SoADynamicDBSCAN:
     """Array-backed exact dynamic DBSCAN (drop-in for the dict engines)."""
 
@@ -232,8 +390,11 @@ class SoADynamicDBSCAN:
                 self.lsh.eta.astype(np.float32)).to(self.device)
             self._mix_dev = torch.from_numpy(
                 np.ascontiguousarray(self.lsh.mixers)).to(self.device)
-            # the insert passes' device mirror of the support-driving sizes
+            # the insert passes' device mirrors: the support-driving
+            # sizes, and the bucket directory the hash pass probes
             self._dpass = DeviceInsertPass(self.device)
+            self._hpass = DeviceHashPass(self.device, self._eta_dev,
+                                         self._mix_dev, self.lsh.inv_cell)
 
         cap = 256
         self._cap = cap
@@ -311,35 +472,61 @@ class SoADynamicDBSCAN:
             self._slot_key.append((table, key))
             self._n_slots += 1
         self._dir[table][key] = s
+        self._dir_changed(table, key, s)
         self._members[s] = set()
         return s
 
     def _free_slot(self, s: int) -> None:
         table, key = self._slot_key[s]  # type: ignore[misc]
         del self._dir[table][key]
+        self._dir_changed(table, key, -1)
         self._slot_key[s] = None
         self._members.pop(s, None)
         self._free_slots.append(s)
 
+    def _dir_changed(self, table: Optional[int] = None, key: bytes = b"",
+                     slot: int = -1) -> None:
+        """The host directory changed: ``(table, key)`` now maps to
+        ``slot`` (-1: erased), or, with no table, all of it did.  The
+        device mirror takes a key's change at the start of the next hash
+        pass; after a wholesale change that pass uploads the directory."""
+        if not self.use_device:
+            return
+        if table is None:
+            self._hpass.mark_stale()
+        else:
+            self._hpass.record(table, key, slot)
+
     # ------------------------------------------------------------------ #
     # hashing / slot resolution
     # ------------------------------------------------------------------ #
-    def _hash_batch(self, X: np.ndarray) -> np.ndarray:
-        """(B, d) -> (B, t, 2) int32 mixed keys (kernel key family)."""
-        X32 = np.ascontiguousarray(X, dtype=np.float32)
+    def _hash_batch(self, X: np.ndarray
+                    ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """(B, d) -> ((B, t, 2) int32 mixed keys (kernel key family), the
+        (B, t) slots the directory already holds for them, -1 for a miss,
+        or None).  On the device path this is one :class:`DeviceHashPass`
+        (``ops.lsh_hash_resolve`` against the device mirror of the
+        directory); the host path hashes with the numpy mirror of the
+        kernel and leaves every lookup to :meth:`_resolve_slots`."""
         if self.use_device:
-            return ops.lsh_hash(
-                torch.from_numpy(X32).to(self.device), self._eta_dev,
-                self._mix_dev, inv_cell=self.lsh.inv_cell).cpu().numpy()
-        return self.lsh.device_keys_batch(X32)
+            return self._hpass.run(X, self._dir)
+        return self.lsh.device_keys_batch(
+            np.ascontiguousarray(X, dtype=np.float32)), None
 
     # hot-path
-    def _resolve_slots(self, keys32: np.ndarray) -> np.ndarray:
+    def _resolve_slots(self, keys32: np.ndarray,
+                       hits: Optional[np.ndarray] = None) -> np.ndarray:
         """(B, t, 2) keys -> (B, t) slot ids, creating directory entries
-        for unseen keys.  One ``np.unique`` per table; Python touches only
-        the unique keys, never the B·t key instances."""
+        for unseen keys.  With ``hits`` (the device pass's slots, -1 for a
+        miss) only the misses are looked at; they are allocated in the
+        order the full lookup allocates them: tables in order, within a
+        table the keys' ``np.unique`` order on the 8-byte view.  Without,
+        one ``np.unique`` per table; Python touches only the unique keys,
+        never the B·t key instances."""
         B = keys32.shape[0]
         self._ensure_slots(self._n_slots + B * self.t)
+        if hits is not None:
+            return self._resolve_misses(keys32, hits)
         void = np.ascontiguousarray(keys32).view(
             np.dtype((np.void, _KEY_W)))[..., 0]          # (B, t)
         slots = np.empty((B, self.t), np.int32)
@@ -353,6 +540,26 @@ class SoADynamicDBSCAN:
                 s = table.get(kb)
                 lut[u] = self._alloc_slot(i, kb) if s is None else s
             slots[:, i] = lut[inv]
+        return slots
+
+    def _resolve_misses(self, keys32: np.ndarray,
+                        slots: np.ndarray) -> np.ndarray:
+        """Fill the -1 entries of ``slots`` (in place) with new slots."""
+        miss = slots < 0
+        if not miss.any():
+            return slots
+        # each key's 8 bytes as a big-endian uint64: its numeric order is
+        # the byte order np.unique gives the void view, at an integer
+        # sort's cost
+        big = np.ascontiguousarray(keys32).view(">u8")[..., 0]   # (B, t)
+        for i in np.nonzero(miss.any(axis=0))[0]:
+            rows = np.nonzero(miss[:, i])[0]
+            uniq, inv = np.unique(big[rows, i], return_inverse=True)
+            raw = uniq.astype(">u8", copy=False).tobytes()
+            lut = np.fromiter((self._alloc_slot(int(i), raw[j:j + 8])
+                               for j in range(0, len(raw), 8)),
+                              np.int32, len(uniq))
+            slots[rows, i] = lut[inv]
         return slots
 
     # ------------------------------------------------------------------ #
@@ -390,8 +597,8 @@ class SoADynamicDBSCAN:
         #    sampled-core subclass narrows it), and the "core sizes" the
         #    crossings run on are whatever _batch_stats says drives
         #    support — bucket occupancy here, sampled occupancy there.
-        keys32 = self._hash_batch(X)
-        slots = self._resolve_slots(keys32)
+        keys32, hits = self._hash_batch(X)
+        slots = self._resolve_slots(keys32, hits)
         ns = self._n_slots
         flat = slots.ravel()
         smask = self._elig_mask(out)
@@ -1163,6 +1370,7 @@ class SoADynamicDBSCAN:
                   if n else np.zeros((0, self.t, 2), np.int32))
         slots = self._resolve_slots(keys32) if n else np.zeros(
             (0, self.t), np.int32)
+        self._dir_changed()
         self._ids[rows] = ids
         self._pts[rows] = points
         self._keys32[rows] = keys32
@@ -1205,6 +1413,7 @@ class SoADynamicDBSCAN:
         self._check_counts(rows, ids, core_ids)
         if self.use_device:
             self._dpass.check(self._bsize, self._n_slots)
+            self._hpass.check(self._dir)
         # 3. attachment validity: anchor is a live core sharing a bucket;
         #    unattached non-core points see no core in any bucket (noise)
         for i, r in zip(ids, rows):

@@ -37,6 +37,10 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 #: C signature of every kernel entry point (all return an int error code)
 SIGNATURES: Dict[str, tuple] = {
     "lsh_hash": (_P, _P, _P, _F, _I, _I, _I, _P, _P),
+    # x, eta, mixers, inv_cell, n, d, t, directory (updated in place), cap,
+    # updates (consumed), n_updates, out, stream: the engine's hash pass,
+    # keys and directory probes in one cooperative launch
+    "lsh_hash_resolve": (_P, _P, _P, _F, _I, _I, _I, _P, _I, _P, _I, _P, _P),
     "slot_counts": (_P, _LL, _I, _P, _P),
     "bucket_core_stats": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     # slots, n, t, sizes (updated in place), nb, k, out, stream: the
@@ -55,8 +59,10 @@ SIGNATURES: Dict[str, tuple] = {
                              _I, _I, _F, _P),
 }
 #: entry points that are a route of other kernels, counted under each of
-#: them: one fused insert pass is a launch of both bucket kernels
+#: them: one fused insert pass is a launch of both bucket kernels, one
+#: hash-and-resolve pass a launch of ``lsh_hash``
 ROUTE_OF: Dict[str, Tuple[str, ...]] = {
+    "lsh_hash_resolve": ("lsh_hash",),
     "flash_attention_sm90": ("flash_attention",),
     "bucket_insert_pass": ("slot_counts", "bucket_core_stats"),
 }

@@ -11,8 +11,9 @@ Each kernel counts its launches (:func:`launch_counts`,
 :func:`reset_launch_counts`); calls of the plain version count nothing.
 A kernel with two routes (``flash_attention``: bf16 on the tensor cores,
 f32 on the CUDA cores) counts both under its name, one launch of the
-fused ``bucket_insert_pass`` counts under both bucket kernels, and
-:func:`entry_launch_counts` says which C entry point ran.
+fused ``bucket_insert_pass`` counts under both bucket kernels, one of
+``lsh_hash_resolve`` under ``lsh_hash``, and :func:`entry_launch_counts`
+says which C entry point ran.
 """
 
 from __future__ import annotations
@@ -30,8 +31,9 @@ from . import ref as _ref
 
 #: the kernels ops dispatches to the card, each a ``<name>_launch`` C
 #: entry point in ``csrc/*.cu`` (``flash_attention`` has a second one,
-#: ``flash_attention_sm90_launch``, for bf16; the two bucket kernels share
-#: ``bucket_insert_pass_launch``)
+#: ``flash_attention_sm90_launch``, for bf16; ``lsh_hash`` another,
+#: ``lsh_hash_resolve_launch``, for the engine's hash pass; the two bucket
+#: kernels share ``bucket_insert_pass_launch``)
 KERNELS = _build.KERNELS
 
 
@@ -45,6 +47,21 @@ def lsh_hash(x, eta, mixers, *, inv_cell: float, impl: Optional[str] = None):
     if _on_card(x, impl):
         return _lh.lsh_hash(x, eta, mixers, inv_cell=inv_cell)
     return _ref.lsh_hash(x, eta, mixers, inv_cell)
+
+
+def lsh_hash_resolve(x, eta, mixers, *, inv_cell: float, directory,
+                     updates, out=None, impl: Optional[str] = None):
+    """The engine's hash pass: apply ``updates`` (u, 4) ``[key a, key b,
+    table, slot]`` (slot -1: erase) to ``directory`` (cap, 4) IN PLACE,
+    then return [keys (n, t, 2) | slots (n, t)] (3 n t,) int32, a slot -1
+    where the directory holds no such key; written into ``out`` when
+    given.  One launch on the card, counted under ``lsh_hash``."""
+    if _on_card(x, impl):
+        return _lh.lsh_hash_resolve(x, eta, mixers, inv_cell=inv_cell,
+                                    directory=directory, updates=updates,
+                                    out=out)
+    return _ref.lsh_hash_resolve(x, eta, mixers, inv_cell, directory,
+                                 updates, out)
 
 
 def slot_counts(slots, *, n_slots: int, impl: Optional[str] = None):
@@ -97,7 +114,8 @@ def entry_launch_counts() -> Dict[str, int]:
     :func:`reset_launch_counts`: ``flash_attention_sm90`` is the bf16
     tensor-core route, ``flash_attention`` the f32 one;
     ``bucket_insert_pass`` is the fused route of ``slot_counts`` and
-    ``bucket_core_stats``, which also have standalone entries."""
+    ``bucket_core_stats``, which also have standalone entries;
+    ``lsh_hash_resolve`` is ``lsh_hash`` with the directory probes."""
     return dict(_build.ENTRY_LAUNCHES)
 
 

@@ -2,8 +2,10 @@
 
 Mirrors of ``repro.kernels.ref`` (``lsh_hash``, ``slot_counts``,
 ``bucket_core_stats``, ``eps_neighbor_counts``, ``attention``) that run
-on any device, and ``bucket_insert_pass``, the engine's insert batch as
-the two bucket kernels composed.  On a CPU tensor the
+on any device, ``bucket_insert_pass``, the engine's insert batch as
+the two bucket kernels composed, and ``lsh_hash_resolve``, the engine's
+hash pass: the keys and their slots in a directory table.  On a CPU
+tensor the
 wrappers in :mod:`.ops` run these; on the card they are what each CUDA
 kernel is held against: bit for bit, and ``attention`` within the
 reference tests' tolerances (its kernel sums in another f32 order).
@@ -80,6 +82,108 @@ def lsh_hash(x: torch.Tensor, eta: torch.Tensor, mixers: torch.Tensor,
     acc_b = ((codes * m[1][None]) & _M32).sum(-1) & _M32
     return torch.stack([_to_int32(_avalanche(acc_a)),
                         _to_int32(_avalanche(acc_b))], dim=-1)
+
+
+#: slot word of an empty directory cell and of a tombstone
+EMPTY, TOMBSTONE = -1, -2
+
+
+def probe(directory: torch.Tensor, table: torch.Tensor, ka: torch.Tensor,
+          kb: torch.Tensor):
+    """Linear probes of an open-addressing directory (cap, 4) int32 of
+    ``[key a, key b, table, slot]`` cells (cap a power of two) for the
+    (table, key) queries given as equal-shaped int32 tensors, each from
+    cell ``key a mod cap`` to the cell holding it live or to the first
+    empty cell.  Returns (the live cell of each query or -1, the number of
+    cells each probe read), both int64 of the queries' shape."""
+    cap = directory.shape[0]
+    mask = cap - 1
+    shape = ka.shape
+    table, ka, kb = (v.reshape(-1) for v in (table, ka, kb))
+    # low bits of the two's complement word, as (uint32)a & mask
+    pos = ka.to(torch.int64) & mask
+    found = torch.full_like(pos, -1)
+    steps = torch.zeros_like(pos)
+    active = torch.arange(pos.numel(), device=pos.device)
+    for _ in range(cap):
+        if active.numel() == 0:
+            break
+        p = pos[active]
+        c = directory[p]
+        steps[active] += 1
+        hit = ((c[:, 3] >= 0) & (c[:, 0] == ka[active])
+               & (c[:, 1] == kb[active]) & (c[:, 2] == table[active]))
+        found[active[hit]] = p[hit]
+        active = active[~hit & (c[:, 3] != EMPTY)]
+        pos[active] = (pos[active] + 1) & mask
+    return found.reshape(shape), steps.reshape(shape)
+
+
+def _insert_absent(directory: torch.Tensor, cells: torch.Tensor) -> None:
+    """Write ``cells`` (m, 4), keys the directory does not hold, each into
+    the first empty or tombstone cell of its probe chain; where several
+    want one cell, the first in ``cells`` takes it and the others go on."""
+    cap, m = directory.shape[0], cells.shape[0]
+    mask = cap - 1
+    pos = cells[:, 0].to(torch.int64) & mask
+    left = torch.arange(m, device=cells.device)
+    for _ in range(cap + m):
+        if left.numel() == 0:
+            return
+        p = pos[left]
+        free = directory[p, 3] < 0
+        want, at = left[free], p[free]
+        first = torch.full((cap,), m, dtype=torch.int64, device=cells.device)
+        first.scatter_reduce_(0, at, want, "amin")
+        won = want[first[at] == want]
+        directory[pos[won]] = cells[won]
+        taken = torch.zeros(m, dtype=torch.bool, device=cells.device)
+        taken[won] = True
+        moved = left[~free]
+        pos[moved] = (pos[moved] + 1) & mask
+        left = left[~taken[left]]
+    raise RuntimeError("directory full")
+
+
+def lsh_hash_resolve(x: torch.Tensor, eta: torch.Tensor,
+                     mixers: torch.Tensor, inv_cell: float,
+                     directory: torch.Tensor, updates: torch.Tensor,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The engine's hash pass against a directory table.
+
+    x, eta, mixers, inv_cell: as :func:`lsh_hash`
+    directory: (cap, 4) int32 cells ``[key a, key b, table, slot]``, cap a
+               power of two, slot ``EMPTY`` or ``TOMBSTONE`` for a free
+               cell; updated IN PLACE
+    updates:   (u, 4) int32 ``[key a, key b, table, slot]``, each (table,
+               key) at most once: a live key takes the new slot (a
+               tombstone for slot -1), an absent key with a slot >= 0 is
+               inserted, an erase of an absent key does nothing
+    returns ``out[:3 n t]`` (allocated when ``out`` is None), int32: the
+    keys ``lsh_hash(x, eta, mixers, inv_cell)`` (n, t, 2), then the slot
+    the directory holds for each (point, table) key after the updates,
+    -1 where it holds none.  Cell positions may differ from the CUDA
+    kernel's (its inserts land in no fixed order); the output does not."""
+    keys = lsh_hash(x, eta, mixers, inv_cell)
+    n, t = keys.shape[:2]
+    if updates.shape[0]:
+        found, _steps = probe(directory, updates[:, 2], updates[:, 0],
+                              updates[:, 1])
+        hit = found >= 0
+        new = updates[hit, 3]
+        directory[found[hit], 3] = torch.where(
+            new >= 0, new, torch.full_like(new, TOMBSTONE))
+        _insert_absent(directory, updates[~hit & (updates[:, 3] >= 0)])
+    tables = torch.arange(t, dtype=torch.int32, device=x.device).expand(n, t)
+    found, _steps = probe(directory, tables, keys[..., 0], keys[..., 1])
+    slots = torch.where(found >= 0, directory[found.clamp(min=0), 3],
+                        torch.full_like(found, -1, dtype=torch.int32))
+    if out is None:
+        out = torch.empty(3 * n * t, dtype=torch.int32, device=x.device)
+    out = out[:3 * n * t]
+    out[:2 * n * t] = keys.reshape(-1)
+    out[2 * n * t:] = slots.reshape(-1)
+    return out
 
 
 def slot_counts(slots: torch.Tensor, n_slots: int) -> torch.Tensor:

@@ -22,6 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_dir_cases as dir_cases  # noqa: E402
 from repro_torch.api import (ClusterConfig, build_index,  # noqa: E402
                              restore_index)
 from repro_torch.data import blobs  # noqa: E402
@@ -66,6 +67,47 @@ def test_lsh_hash_matches_plain(cuda, n, d, t):
     # the plain version on the card equals the plain version on the CPU
     assert torch.equal(want.cpu(), ops.lsh_hash(
         x.cpu(), eta.cpu(), mixers.cpu(), inv_cell=1 / 1.5))
+
+
+@pytest.mark.parametrize("case", dir_cases.CASES)
+@pytest.mark.parametrize("n,d,t", [(n, d, t) for n in (1, 255, 1000)
+                                   for d in (1, 10, 54) for t in (1, 10)])
+def test_lsh_hash_resolve_matches_plain(cuda, n, d, t, case):
+    """The hash-and-resolve pass against its plain version through the
+    directory cases of ``tests/torch_dir_cases.py`` (empty, a tombstone in
+    every probe chain, erase and reinsert with reused slots, growth
+    across a flush, one new key repeated across a batch); (1000, 10, 10)
+    is the main path's batch.  Every call's keys and slots are equal, and
+    so are the two tables' live cells at the end.  One launch a call,
+    counted under ``lsh_hash``."""
+    x, eta, mixers = (torch.from_numpy(a).to(cuda) for a in
+                      dir_cases.batch(n, d, t, n * 100 + d * 10 + t))
+    keys = ops.lsh_hash(x, eta, mixers, inv_cell=dir_cases.INV_CELL,
+                        impl="ref").cpu().numpy()
+    steps = dir_cases.scenario(case, keys, n + d + t)
+    ops.reset_launch_counts()
+    got, table = dir_cases.run(steps, x, lambda xs, upd, tab:
+                               ops.lsh_hash_resolve(
+                                   xs, eta, mixers,
+                                   inv_cell=dir_cases.INV_CELL,
+                                   directory=tab, updates=upd))
+    torch.cuda.synchronize()
+    calls = sum(s[0] == "call" for s in steps)
+    assert ops.launch_counts()["lsh_hash"] == calls
+    assert ops.entry_launch_counts()["lsh_hash_resolve"] == calls
+    assert ops.entry_launch_counts()["lsh_hash"] == 0
+    want, table_ref = dir_cases.run(steps, x, lambda xs, upd, tab:
+                                    ops.lsh_hash_resolve(
+                                        xs, eta, mixers,
+                                        inv_cell=dir_cases.INV_CELL,
+                                        directory=tab, updates=upd,
+                                        impl="ref"))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert dir_cases.live(table) == dir_cases.live(table_ref)
+    if case == "tombstone":
+        assert dir_cases.past_tombstone(table) == len(
+            dir_cases.live(table))
 
 
 @pytest.mark.parametrize("n,t,nb", BUCKET_SHAPES)
@@ -181,14 +223,28 @@ def test_wrappers_reject_bad_arguments(cuda):
                      torch.zeros(3, device=cuda),
                      torch.ones((2, 3, 3), dtype=torch.int32, device=cuda),
                      inv_cell=1.0)
+    x, eta = torch.zeros((4, 2), device=cuda), torch.zeros(3, device=cuda)
+    mix = torch.ones((2, 3, 2), dtype=torch.int32, device=cuda)
+    upd = torch.zeros((0, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="power of"):
+        ops.lsh_hash_resolve(x, eta, mix, inv_cell=1.0, updates=upd,
+                             directory=torch.full((12, 4), -1,
+                                                  dtype=torch.int32,
+                                                  device=cuda))
+    with pytest.raises(ValueError, match="aligned"):
+        ops.lsh_hash_resolve(x, eta, mix, inv_cell=1.0, updates=upd,
+                             directory=torch.full((33,), -1,
+                                                  dtype=torch.int32,
+                                                  device=cuda)[1:].view(8, 4))
 
 
 @pytest.mark.parametrize("orphans", [True, False])
 def test_soa_device_on_cuda_matches_host_soa(cuda, orphans):
     """Inserts, batch and single deletes and a snapshot restored
     mid-stream: the bucket kernels run once per insert batch, through the
-    fused pass only, and the mirror of the sizes stays equal to the host
-    table whenever it is fresh."""
+    fused pass only, so does ``lsh_hash``, through the hash-and-resolve
+    pass only, and the mirrors of the sizes and of the directory stay
+    equal to the host's whenever they are fresh."""
     X, _ = blobs(n=3000, d=10, n_clusters=10, seed=1)
     cfg = ClusterConfig(d=10, k=10, t=10, eps=0.75, seed=1,
                         backend="soa-device", attach_orphans=orphans)
@@ -224,8 +280,9 @@ def test_soa_device_on_cuda_matches_host_soa(cuda, orphans):
                       "bucket_core_stats": 12, "eps_neighbor_counts": 0,
                       "flash_attention": 0}
     entries = ops.entry_launch_counts()
-    assert entries["bucket_insert_pass"] == 12
+    assert entries["bucket_insert_pass"] == entries["lsh_hash_resolve"] == 12
     assert entries["slot_counts"] == entries["bucket_core_stats"] == 0
+    assert entries["lsh_hash"] == 0
     dev.check_invariants()
     for key, val in dev.snapshot()["state"].items():
         np.testing.assert_array_equal(val, host.snapshot()["state"][key])

@@ -55,8 +55,9 @@ def test_plan_refuses_what_no_route_takes():
 
 def test_routes_are_entry_points_counted_under_one_kernel():
     assert set(_build.SIGNATURES) == set(ops.KERNELS) | {
-        "flash_attention_sm90", "bucket_insert_pass"}
+        "lsh_hash_resolve", "flash_attention_sm90", "bucket_insert_pass"}
     assert _build.ROUTE_OF == {
+        "lsh_hash_resolve": ("lsh_hash",),
         "flash_attention_sm90": ("flash_attention",),
         "bucket_insert_pass": ("slot_counts", "bucket_core_stats")}
     for dtype in (torch.float32, torch.bfloat16):
