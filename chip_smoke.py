@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--points N]
 
-Phases, each of which raises on failure (exit code != 0):
+Phases (1-3, 3b, 4-7), each of which raises on failure (exit code != 0):
 
 1. device  — print the card (``nvidia-smi`` name and power limit, torch's
              device name); no CUDA device is a failure.
@@ -33,14 +33,32 @@ Phases, each of which raises on failure (exit code != 0):
              throughput, ARI, the host seconds of the two device passes
              (``hash_pass_s``: points to slots, the device pass and the
              host lookup of its misses, ``resolver_s`` the latter;
-             ``stats_pass_s``) and the misses a batch.
+             ``stats_pass_s``) and the misses a batch.  The host
+             engine's labels and sorted deltas are kept for phase 3b.
+3b. dict   — the paper's Euler-tour engine with one ``lsh_hash`` call a
+             batch, ``batched-device`` on the card, through the same
+             stream as phase 3 (inserts, deltas drained every batch, 32
+             sampled ``label()`` calls a batch and ``labels()`` every
+             10th, the same 25% deleted, snapshot + restore): labels at
+             every 10th batch and at the ends and each batch's sorted
+             deltas must equal the host ``soa`` engine's of phase 3, each
+             batch's keys its plain ``lsh_hash`` on the card, the sampled
+             roots must partition the sample as ``labels()`` does, the
+             standalone ``lsh_hash`` entry must launch once per insert
+             batch and no other kernel at all, and the restore must
+             rebuild the exact forest (``check_invariants``).  Prints
+             throughput, ``labels()`` seconds, ARI, ``stats()``, the host
+             seconds of the hash call (upload, launch, download) against
+             the rest of an insert batch, and the kernel at the last
+             batch per call beside its plain version and its bound.
 4. baselines — the paper's Table-2 streaming protocol at its default
              scale (``benchmarks/table2.py``, scale 0.1): blobs n=20,000,
              d=10, 10 clusters, k=10, t=10, eps=0.75, batches of 1000
              with ``labels()`` after every batch, through the host
-             backends ``naive``, ``emz-static`` and ``emz-fixed``; prints
-             each one's seconds, ARI and NMI; snapshot + restore of
-             ``naive`` and ``emz-static`` must give equal labels.  Then
+             backends ``dynamic`` (the table's headline row), ``naive``,
+             ``emz-static`` and ``emz-fixed``; prints each one's seconds,
+             ARI and NMI; snapshot + restore of all but ``emz-fixed``
+             must give equal labels.  Then
              the exact eps-ball counts of the final 20,000 points on the
              card (the ``eps_neighbor_counts`` kernel, which must
              launch), held bit-exact against its plain version; the rows
@@ -110,10 +128,11 @@ Phases, each of which raises on failure (exit code != 0):
 
 The line before the last is one JSON object with a ``kernels`` list (all
 five kernels and the ``lsh_hash_resolve`` and fused
-``bucket_insert_pass`` routes); the last line is ``{"ok": true,
+``bucket_insert_pass`` routes; ``lsh_hash``'s entry also gives its
+launches on the dict path); the last line is ``{"ok": true,
 "device": {...}}``.
-``--points`` cuts the main stream only (the cut is printed); d, k, t,
-eps and the batch never change.
+``--points`` cuts the main and dict streams only (the cut is printed);
+d, k, t, eps and the batch never change.
 """
 
 from __future__ import annotations
@@ -167,7 +186,7 @@ MAIN_KERNELS = ("lsh_hash", "slot_counts", "bucket_core_stats")
 MAIN_ENTRIES = ("lsh_hash_resolve", "bucket_insert_pass")
 # Table 2 at its default scale: benchmarks/table2.py run(scale=0.1) on
 # blobs, with benchmarks/common.py stream_eval's protocol
-BASELINES = ("naive", "emz-static", "emz-fixed")
+BASELINES = ("dynamic", "naive", "emz-static", "emz-fixed")
 BASELINE_POINTS = 20_000
 # shapes of the eps_neighbor_counts correctness sweep: n on the edges of
 # the kernel's 128-point tiles, 8193 (blocks start inside a row of tile
@@ -313,6 +332,26 @@ def dir_cells(host_dir):
                            for k, s in t.items())
 
 
+def label_array(labels):
+    """A ``labels()`` dict as a (2, n) int64 array [ids; labels], sorted
+    by id: two dicts are equal iff their arrays are."""
+    import numpy as np
+
+    ids = np.fromiter(labels.keys(), np.int64, len(labels))
+    lab = np.fromiter(labels.values(), np.int64, len(labels))
+    order = np.argsort(ids, kind="stable")
+    return np.stack([ids[order], lab[order]])
+
+
+def delta_array(deltas):
+    """Sorted ``(idx, old, new)`` deltas as an (m, 3) int64 array, None
+    as -1 (handles are ids, never negative)."""
+    import numpy as np
+
+    return np.array([[-1 if v is None else v for v in row]
+                     for row in deltas], np.int64).reshape(-1, 3)
+
+
 def run_main_path(n_points: int, device: str):
     """Drive soa-device (on ``device``) and the host soa engine through
     the same stream; returns (metrics, last-batch inputs for phase 4)."""
@@ -365,6 +404,10 @@ def run_main_path(n_points: int, device: str):
     eng._resolve_slots = timed(resolve, "resolve")
     eng._batch_stats = timed(eng._batch_stats, "stats")
 
+    # the host engine's results, which the dict phase is held against:
+    # labels() at every 10th insert batch and after the inserts and the
+    # deletes, each batch's sorted deltas, the victims
+    kept = {"labels": {}, "insert_deltas": [], "delete_deltas": []}
     ops.reset_launch_counts()
     ins_s = del_s = query_s = 0.0
     n_deltas = 0
@@ -381,8 +424,10 @@ def run_main_path(n_points: int, device: str):
         ins_s += time.perf_counter() - t0
         if host.insert_batch(Xb) != ids:
             raise AssertionError(f"batch {b}: assigned ids differ")
-        if sorted(deltas) != sorted(host.drain_deltas()):
+        host_deltas = sorted(host.drain_deltas())
+        if sorted(deltas) != host_deltas:
             raise AssertionError(f"batch {b}: insert deltas differ")
+        kept["insert_deltas"].append(delta_array(host_deltas))
         n_deltas += len(deltas)
         sample = rng.choice(ids, size=min(32, len(ids)), replace=False)
         t0 = time.perf_counter()
@@ -391,8 +436,11 @@ def run_main_path(n_points: int, device: str):
         query_s += time.perf_counter() - t0
         if got != [host.label(int(i)) for i in sample]:
             raise AssertionError(f"batch {b}: sampled labels differ")
-        if full is not None and full != host.labels():
-            raise AssertionError(f"batch {b}: labels() differ")
+        if full is not None:
+            host_full = host.labels()
+            if full != host_full:
+                raise AssertionError(f"batch {b}: labels() differ")
+            kept["labels"][b] = label_array(host_full)
         if b == n_batches - 1:
             rows = [eng._row[i] for i in ids]
             ns = eng._n_slots
@@ -423,6 +471,7 @@ def run_main_path(n_points: int, device: str):
     labels_ins = dev.labels()
     if labels_ins != host.labels():
         raise AssertionError("labels() differ after the inserts")
+    kept["labels_after_inserts"] = label_array(labels_ins)
     ari_ins = adjusted_rand_index(
         y, np.array([labels_ins[i] for i in range(n_points)]))
 
@@ -434,12 +483,16 @@ def run_main_path(n_points: int, device: str):
         deltas = dev.drain_deltas()
         del_s += time.perf_counter() - t0
         host.delete_batch(vb)
-        if sorted(deltas) != sorted(host.drain_deltas()):
+        host_deltas = sorted(host.drain_deltas())
+        if sorted(deltas) != host_deltas:
             raise AssertionError(f"delete batch {b // BATCH}: deltas differ")
+        kept["delete_deltas"].append(delta_array(host_deltas))
         n_deltas += len(deltas)
     labels_del = dev.labels()
     if labels_del != host.labels():
         raise AssertionError("labels() differ after the deletes")
+    kept["labels_after_deletes"] = label_array(labels_del)
+    kept["victims"] = victims
     live = np.array(sorted(labels_del))
     ari_del = adjusted_rand_index(
         y[live], np.array([labels_del[int(i)] for i in live]))
@@ -453,6 +506,7 @@ def run_main_path(n_points: int, device: str):
     launches = ops.launch_counts()
     entries = ops.entry_launch_counts()
     last["restored"] = rest
+    last["host_stream"] = kept
     if eng._dpass.n_passes != n_batches or size_uploads_ins:
         raise AssertionError(f"{eng._dpass.n_passes} stats passes and "
                              f"{size_uploads_ins} size-table uploads in "
@@ -512,6 +566,235 @@ def run_main_path(n_points: int, device: str):
         "restore_labels_equal": True,
     }
     return metrics, last
+
+
+# ---------------------------------------------------------------------- #
+# dict path: the paper's Euler-tour engine with one hash call a batch
+# ---------------------------------------------------------------------- #
+def run_dict_path(n_points: int, device: str, kept: dict):
+    """Drive ``batched-device`` (on ``device``) through phase 3's stream
+    and hold it against what the host ``soa`` engine gave there
+    (``kept``); returns (metrics, the last batch's points and keys)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import ClusterConfig, build_index, restore_index
+    from repro_torch.core.metrics import adjusted_rand_index
+    from repro_torch.data import DATASET_SPECS, blobs
+    from repro_torch.kernels import ops
+
+    _n, d, n_clusters = DATASET_SPECS["blobs"]
+    X, y = blobs(n=n_points, d=d, n_clusters=n_clusters, seed=SEED)
+    rng = np.random.default_rng(SEED + 2)
+    cfg = ClusterConfig(d=D, k=K, t=T, eps=EPS, seed=SEED,
+                        backend="batched-device")
+    index = build_index(cfg, device=device)
+    index.drain_deltas()
+    eng = index.engine
+    if not eng.use_device or eng.device.type != torch.device(device).type:
+        raise AssertionError(f"batched-device built on {eng.device}, "
+                             f"use_device={eng.use_device}")
+
+    # host clock around the hash call (upload, launch, download); the
+    # batch's points and keys are kept for the check against the plain
+    # version, made outside the timed insert; and around the whole
+    # keying of a batch (the hash call and the keys' bytes)
+    hash_s = [0.0, 0.0]
+    seen = {}
+    device_hash, keys_of_batch = eng._device_hash, eng._keys_of_batch
+
+    def timed_hash(Xb):
+        t0 = time.perf_counter()
+        keys = device_hash(Xb)
+        hash_s[0] += time.perf_counter() - t0
+        seen["x"], seen["keys"] = Xb, keys
+        return keys
+
+    def timed_keys(Xb):
+        t0 = time.perf_counter()
+        try:
+            return keys_of_batch(Xb)
+        finally:
+            hash_s[1] += time.perf_counter() - t0
+
+    eng._device_hash = timed_hash
+    eng._keys_of_batch = timed_keys
+
+    def plain_keys(x32):
+        x = torch.from_numpy(x32).to(device)
+        return ops.lsh_hash(x, eng._eta_dev, eng._mix_dev,
+                            inv_cell=eng.lsh.inv_cell,
+                            impl="ref").cpu().numpy()
+
+    ops.reset_launch_counts()
+    ins_s = del_s = query_s = labels_s = 0.0
+    n_deltas = n_compared = 0
+    t_path = time.perf_counter()
+    n_batches = (n_points + BATCH - 1) // BATCH
+    for b in range(n_batches):
+        Xb = X[b * BATCH:(b + 1) * BATCH]
+        t0 = time.perf_counter()
+        ids = index.insert_batch(Xb)
+        deltas = index.drain_deltas()
+        ins_s += time.perf_counter() - t0
+        if ids != list(range(b * BATCH, b * BATCH + len(Xb))):
+            raise AssertionError(f"dict batch {b}: assigned ids differ")
+        if not np.array_equal(delta_array(sorted(deltas)),
+                              kept["insert_deltas"][b]):
+            raise AssertionError(f"dict batch {b}: insert deltas differ "
+                                 "from the host soa engine's")
+        if not np.array_equal(seen["x"], np.asarray(Xb, np.float32)) or \
+                not np.array_equal(seen["keys"], plain_keys(seen["x"])):
+            raise AssertionError(f"dict batch {b}: lsh_hash keys differ "
+                                 "from its plain version")
+        n_deltas += len(deltas)
+        sample = [int(i) for i in rng.choice(ids, size=min(32, len(ids)),
+                                             replace=False)]
+        t0 = time.perf_counter()
+        got = [index.label(i) for i in sample]
+        query_s += time.perf_counter() - t0
+        if b % 10 == 9:
+            t0 = time.perf_counter()
+            full = index.labels()
+            dt = time.perf_counter() - t0
+            query_s += dt
+            labels_s += dt
+            if not np.array_equal(label_array(full), kept["labels"][b]):
+                raise AssertionError(f"dict batch {b}: labels() differ "
+                                     "from the host soa engine's")
+            n_compared += 1
+            # the sampled roots partition the sample as labels() does
+            lab = [full[i] for i in sample]
+            for i in range(len(sample)):
+                for j in range(i):
+                    if lab[i] != -1 and lab[j] != -1 and \
+                            (got[i] == got[j]) != (lab[i] == lab[j]):
+                        raise AssertionError(
+                            f"dict batch {b}: label() of {sample[i]}, "
+                            f"{sample[j]} disagrees with labels()")
+    launches = ops.launch_counts()
+    entries = ops.entry_launch_counts()
+    t0 = time.perf_counter()
+    labels_ins = index.labels()
+    labels_s += time.perf_counter() - t0
+    if not np.array_equal(label_array(labels_ins),
+                          kept["labels_after_inserts"]):
+        raise AssertionError("dict: labels() differ from the host soa "
+                             "engine's after the inserts")
+    ari_ins = adjusted_rand_index(
+        y, np.array([labels_ins[i] for i in range(n_points)]))
+    stats_ins = index.stats()
+
+    victims = kept["victims"]
+    for n, b in enumerate(range(0, len(victims), BATCH)):
+        vb = [int(i) for i in victims[b:b + BATCH]]
+        t0 = time.perf_counter()
+        index.delete_batch(vb)
+        deltas = index.drain_deltas()
+        del_s += time.perf_counter() - t0
+        if not np.array_equal(delta_array(sorted(deltas)),
+                              kept["delete_deltas"][n]):
+            raise AssertionError(f"dict delete batch {n}: deltas differ "
+                                 "from the host soa engine's")
+        n_deltas += len(deltas)
+    t0 = time.perf_counter()
+    labels_del = index.labels()
+    labels_s += time.perf_counter() - t0
+    if not np.array_equal(label_array(labels_del),
+                          kept["labels_after_deletes"]):
+        raise AssertionError("dict: labels() differ from the host soa "
+                             "engine's after the deletes")
+    live = np.array(sorted(labels_del))
+    ari_del = adjusted_rand_index(
+        y[live], np.array([labels_del[int(i)] for i in live]))
+    if ops.launch_counts() != launches:
+        raise AssertionError("dict: a kernel launched during the deletes")
+
+    t0 = time.perf_counter()
+    rest = restore_index(index.snapshot(), device=device)
+    restore_s = time.perf_counter() - t0
+    if rest.labels() != labels_del:
+        raise AssertionError("dict: labels differ after snapshot + "
+                             "restore")
+    if sorted(rest.engine.forest._edge) != sorted(eng.forest._edge):
+        raise AssertionError("dict: the restored forest differs")
+    t0 = time.perf_counter()
+    rest.check_invariants()
+    invariants_s = time.perf_counter() - t0
+    wall = time.perf_counter() - t_path
+
+    if device != "cpu":
+        # the standalone lsh_hash entry once per insert batch, nothing else
+        want = {"lsh_hash": n_batches}
+        got = {k: v for k, v in entries.items() if v}
+        if got != want or {k: v for k, v in launches.items() if v} != want:
+            raise AssertionError(f"kernel entries on the dict path: {got}, "
+                                 f"expected {want}")
+    metrics = {
+        "backend": "batched-device", "points": n_points,
+        "cut": n_points != FULL_POINTS, "d": D, "k": K, "t": T, "eps": EPS,
+        "batch": BATCH, "deleted": len(victims), "deltas": n_deltas,
+        "insert_pts_per_s": n_points / ins_s,
+        "delete_pts_per_s": len(victims) / del_s if del_s else None,
+        "insert_s": ins_s, "delete_s": del_s, "query_s": query_s,
+        "labels_s": labels_s, "restore_s": restore_s,
+        "check_invariants_s": invariants_s, "dict_path_wall_s": wall,
+        # the hash call (upload + launch + download) against the rest of
+        # an insert batch, host clock
+        "hash_call_s": hash_s[0],
+        "hash_call_ms_per_batch": hash_s[0] / n_batches * 1e3,
+        "rest_of_insert_ms_per_batch": (ins_s - hash_s[0]) / n_batches * 1e3,
+        "hash_call_share_of_insert": hash_s[0] / ins_s,
+        # the hash call with the keys' conversion to bytes
+        "keying_ms_per_batch": hash_s[1] / n_batches * 1e3,
+        "ari_after_inserts": ari_ins, "ari_after_deletes": ari_del,
+        "stats_after_inserts": stats_ins, "stats": index.stats(),
+        "labels_compared": n_compared + 2, "launches": launches,
+        "entry_launches": entries, "keys_equal_plain": True,
+        "labels_equal_host_soa": True, "deltas_equal_host_soa": True,
+        "restore_labels_equal": True, "restored_forest_equal": True,
+    }
+    last = {"x": np.asarray(seen["x"], np.float32), "keys": seen["keys"],
+            "eta": eng.lsh.eta.astype(np.float32),
+            "mixers": eng.lsh.mixers.copy(), "inv_cell": eng.lsh.inv_cell}
+    return metrics, last
+
+
+def time_dict_hash(last, card: str) -> dict:
+    """The ``lsh_hash`` kernel at the dict path's last batch (B = 1000):
+    bit-exact against its plain version, per call with CUDA events beside
+    the plain version, and its bytes bound as phase 6 computes it for
+    row 1.  No profiler here: phase 6 gives the kernel's device time at
+    this shape, and the LM phase's profiler sessions come first, as
+    before this phase existed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    x = torch.from_numpy(last["x"]).to(dev)
+    eta = torch.from_numpy(last["eta"]).to(dev)
+    mixers = torch.from_numpy(np.ascontiguousarray(last["mixers"])).to(dev)
+    inv = last["inv_cell"]
+    got = ops.lsh_hash(x, eta, mixers, inv_cell=inv)
+    err = max_abs_err(got, ops.lsh_hash(x, eta, mixers, inv_cell=inv,
+                                        impl="ref"))
+    if err or not np.array_equal(got.cpu().numpy(), last["keys"]):
+        raise AssertionError("lsh_hash at the dict path's last batch "
+                             "differs from its plain version or from the "
+                             "path's keys")
+    n, t = x.shape[0], eta.shape[0]
+    nb = (x.numel() + eta.numel() + mixers.numel() + got.numel()) * 4
+    bound_ms, bound_by = bound(nb, n * t * D * 8 + n * t * 20)
+    return {
+        "n": n, "t": t, "max_abs_err": err,
+        "ms": time_ms(lambda: ops.lsh_hash(x, eta, mixers, inv_cell=inv)),
+        "plain_ms": time_ms(lambda: ops.lsh_hash(x, eta, mixers,
+                                                 inv_cell=inv, impl="ref")),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nb,
+        "card": card,
+    }
 
 
 # ---------------------------------------------------------------------- #
@@ -2026,6 +2309,27 @@ def main(argv=None) -> int:
     metrics["build"] = build
     print("main_path " + json.dumps(metrics), flush=True)
 
+    # 3b. dict path: batched-device over the same stream, held against
+    #     the host soa engine's results of phase 3
+    dict_m, dict_last = run_dict_path(args.points, "cuda",
+                                      last.pop("host_stream"))
+    dict_m["card"] = card
+    dict_m["lsh_hash_at_batch"] = time_dict_hash(dict_last, card)
+    kh = dict_m["lsh_hash_at_batch"]
+    print(f"dict: batched-device, {args.points} points: insert "
+          f"{dict_m['insert_pts_per_s']:.1f} points/s, delete "
+          f"{dict_m['delete_pts_per_s']:.1f} points/s, labels() "
+          f"{dict_m['labels_s']:.3f} s, ARI {dict_m['ari_after_inserts']:.4f}"
+          f" / {dict_m['ari_after_deletes']:.4f}; hash call "
+          f"{dict_m['hash_call_ms_per_batch']:.4f} ms of an insert batch's "
+          f"{dict_m['hash_call_ms_per_batch'] + dict_m['rest_of_insert_ms_per_batch']:.4f}"
+          f" ms; lsh_hash at {kh['n']} x {kh['t']}: {kh['ms']:.5f} ms per "
+          f"call, plain {kh['plain_ms']:.4f} ms, bound "
+          f"{kh['bound_ms']:.7f} ms  [{card}]", flush=True)
+    print("dict_path " + json.dumps(dict_m), flush=True)
+    del dict_last
+    gc.collect()
+
     # 4. baselines path
     base, x_base = run_baselines(BASELINE_POINTS, "cuda")
     base["card"] = card
@@ -2055,6 +2359,13 @@ def main(argv=None) -> int:
     for entry in MAIN_ENTRIES:
         launches[entry] = metrics["entry_launches"][entry]
     kernels = check_kernels(last, launches, card, x_base, build) + [flash]
+    # lsh_hash's second path: batched-device's standalone entry
+    row1 = next(k for k in kernels if k["name"] == "lsh_hash")
+    row1.update({
+        "batched_device_launches": dict_m["entry_launches"]["lsh_hash"],
+        "batched_device_insert_batches": -(-args.points // BATCH),
+        "batched_device_ms": kh["ms"],
+        "batched_device_plain_ms": kh["plain_ms"]})
     share = sum(k["launches"] * k["ms"] for k in kernels
                 if k["name"] in MAIN_ENTRIES) / 1e3 / metrics["insert_s"]
     print(f"main-path kernel time (launches x ms per call) / insert wall "

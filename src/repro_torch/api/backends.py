@@ -3,6 +3,13 @@
 =================  ==================================================
 key                engine
 =================  ==================================================
+``dynamic``        DynamicDBSCAN — the paper's Alg. 2 (exact host keys),
+                   host only
+``batched``        BatchedDynamicDBSCAN — batch hashing on the host
+                   (mixed keys, the kernel's numpy mirror), host only
+``batched-device`` BatchedDynamicDBSCAN(use_device=True) — one
+                   ``lsh_hash`` call a batch on ``device`` ("cuda" by
+                   default), host pointer updates
 ``soa``            SoADynamicDBSCAN — vectorised structure-of-arrays
                    core on the host (numpy mirror, no kernel)
 ``soa-device``     SoADynamicDBSCAN(use_device=True) — the lsh_hash and
@@ -18,8 +25,10 @@ The recompute baselines are *lazy*: mutations only touch the point store;
 the clustering runs from scratch on the first ``label``/``labels`` query
 after a mutation (matching the paper's "recompute after each batch"
 protocol when queried once per batch).  A host-only backend refuses any
-device but ``None`` and "cpu".  The other backends of ``repro.api`` come
-with later slices of the port.
+device but ``None`` and "cpu"; the device backends are listed in
+:data:`~repro_torch.api.registry.DEVICE_BACKENDS`.  The other backends of
+``repro.api`` (``approx``, ``sharded``, ``tiered``) come with later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -28,7 +37,8 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from ..core.dynamic_dbscan import claim_index
+from ..core.batched import BatchedDynamicDBSCAN
+from ..core.dynamic_dbscan import DynamicDBSCAN, claim_index
 from ..core.fixed_core import EMZFixedCore
 from ..core.hashing import GridLSH
 from ..core.naive_dbscan import dbscan
@@ -37,6 +47,81 @@ from ..core.static_emz import emz_cluster
 from .config import ClusterConfig
 from .index import ClusterIndex
 from .registry import register_backend
+
+#: backends keyed by the float32 device-hash mixed keys rather than exact
+#: int64 grid codes — consumers that must mirror an engine's bucket-key
+#: space branch on this (the reference's list, ``approx`` included)
+MIXED_KEY_BACKENDS = ("batched", "batched-device", "soa", "soa-device",
+                      "approx")
+
+
+class EulerTourIndex(ClusterIndex):
+    """Adapter over the dynamic engines (shared DynamicDBSCAN machinery)."""
+
+    native_component_queries = True
+
+    def __init__(self, cfg: ClusterConfig, engine: DynamicDBSCAN):
+        super().__init__(cfg)
+        self.engine = engine
+        # hand the engine this index's obs handle so structural telemetry
+        # (repair depth) lands in the same registry as the adapter's ops
+        engine.obs = self.obs
+        # bind the native point query directly: adapter hops count on a
+        # query made per point
+        self.component_of = engine.get_cluster
+
+    def insert(self, x: np.ndarray, idx: Optional[int] = None) -> int:
+        return self.engine.add_point(x, idx=idx)
+
+    def delete(self, idx: int) -> None:
+        self.engine.delete_point(idx)
+
+    def insert_batch(self, X, ids=None) -> List[int]:
+        X = np.asarray(X, dtype=np.float64)
+        if isinstance(self.engine, BatchedDynamicDBSCAN):
+            return self.engine.add_batch(X, ids=ids)
+        return super().insert_batch(X, ids=ids)
+
+    def label(self, idx: int) -> int:  # hot-path
+        return self.engine.get_cluster(idx)
+
+    def labels(self, ids=None) -> Dict[int, int]:
+        return self.engine.labels(ids)
+
+    def core_anchor_of(self, idx):
+        return self.engine.core_anchor(idx)  # O(1) support/attach lookup
+
+    def drain_deltas(self):
+        return self.engine.drain_deltas()
+
+    def is_core(self, idx: int) -> bool:
+        return self.engine.is_core(idx)
+
+    def ids(self):
+        return sorted(self.engine.points)
+
+    def __contains__(self, idx):
+        return idx in self.engine.points
+
+    def __len__(self):
+        return len(self.engine.points)
+
+    def _state(self):
+        return self.engine.state_dict()
+
+    def _load_state(self, state):
+        self.engine.load_state_dict(state)
+
+    def check_invariants(self):
+        self.engine.check_invariants()
+
+    def stats(self):
+        return {
+            "n_repair_scans": self.engine.n_repair_scans,
+            "n_repair_links": self.engine.n_repair_links,
+            "n_links": self.engine.forest.n_links,
+            "n_cuts": self.engine.forest.n_cuts,
+        }
 
 
 class SoAIndex(ClusterIndex):
@@ -283,6 +368,34 @@ def _host_only(backend: str, device: Optional[str], hint: str = "") -> None:
     if device not in (None, "cpu"):
         raise ValueError(f"backend {backend!r} runs on the host only; got "
                          f"device={device!r}{hint}")
+
+
+def _dynamic_engine(cfg: ClusterConfig, cls, **extra) -> EulerTourIndex:
+    return EulerTourIndex(cfg, cls(
+        cfg.d, cfg.k, cfg.t, cfg.eps, seed=cfg.seed,
+        attach_orphans=cfg.attach_orphans, repair=cfg.repair, **extra,
+    ))
+
+
+@register_backend("dynamic")
+def _build_dynamic(cfg: ClusterConfig, device: Optional[str]) -> ClusterIndex:
+    _host_only("dynamic", device)
+    return _dynamic_engine(cfg, DynamicDBSCAN)
+
+
+@register_backend("batched")
+def _build_batched(cfg: ClusterConfig, device: Optional[str]) -> ClusterIndex:
+    _host_only("batched", device, hint=" (use backend='batched-device')")
+    return _dynamic_engine(cfg, BatchedDynamicDBSCAN, use_device=False)
+
+
+@register_backend("batched-device")
+def _build_batched_device(cfg: ClusterConfig,
+                          device: Optional[str]) -> ClusterIndex:
+    # one ops.lsh_hash call a batch: the CUDA kernel on "cuda" (the
+    # default; raises without a card), its plain version on "cpu"
+    return _dynamic_engine(cfg, BatchedDynamicDBSCAN, use_device=True,
+                           device=device or "cuda")
 
 
 @register_backend("soa")

@@ -22,6 +22,12 @@ Factory = Callable[[ClusterConfig, Optional[str]], ClusterIndex]
 
 _REGISTRY: Dict[str, Factory] = {}
 
+#: the built-in backends that run on a device (``device=None`` means
+#: "cuda"); every other built-in backend runs on the host and refuses any
+#: device but ``None`` and "cpu".  A caller that holds a device for its
+#: own work (the serving engine) passes it only to these.
+DEVICE_BACKENDS = ("batched-device", "soa-device")
+
 
 def register_backend(name: str,
                      overwrite: bool = False) -> Callable[[Factory], Factory]:
@@ -64,9 +70,10 @@ def build_index(cfg: Union[ClusterConfig, str, None] = None, *,
 
     ``build_index(cfg)``, ``build_index("soa", d=8, k=10, t=10, eps=0.5)``
     and ``build_index(d=8, ..., backend="soa")`` are all accepted.
-    ``device`` picks where a device backend runs (``soa-device``: "cuda"
-    by default, "cpu" for its plain kernels); a host-only backend
-    (``soa``, ``emz-static``, ``naive``, ``emz-fixed``) accepts only
+    ``device`` picks where a device backend (:data:`DEVICE_BACKENDS`:
+    ``soa-device``, ``batched-device``) runs: "cuda" by default, "cpu"
+    for its plain kernels; a host-only backend (``dynamic``, ``batched``,
+    ``soa``, ``emz-static``, ``naive``, ``emz-fixed``) accepts only
     ``None`` or "cpu" and raises on any other.
     """
     if isinstance(cfg, str):

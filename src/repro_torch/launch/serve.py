@@ -2,14 +2,14 @@
 
 Mirror of ``repro.launch.serve``, plus ``--device`` (default ``cuda``)
 and ``--cluster-backend`` (the engine's keyword; default, as there,
-``batched``, which the port does not have yet and so raises — pass
-``soa-device`` on the card or ``soa`` on the CPU).  The default arch is
-a dense one until the SSM family is ported (the reference's is
-``mamba2-780m``); an arch of an unported family raises.
+``batched``, which runs on the host whatever ``--device`` is; a device
+backend, ``batched-device`` or ``soa-device``, runs on ``--device``).
+The default arch is a dense one until the SSM family is ported (the
+reference's is ``mamba2-780m``); an arch of an unported family raises.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-20b \\
-      --smoke --requests 16 --batch 4 [--cluster --cluster-backend soa-device]
+      --smoke --requests 16 --batch 4 [--cluster [--cluster-backend soa-device]]
 """
 
 from __future__ import annotations

@@ -16,8 +16,11 @@ the window — the paper's insert+delete workload.
 
 The decode step is a plain call under ``torch.inference_mode()`` (the
 reference jits it).  ``cluster_backend`` keeps the reference's default,
-``"batched"``; a backend the port does not have yet raises the
-registry's ``KeyError`` rather than being replaced by another.
+``"batched"`` (host); the engine hands its device only to a device
+backend (``repro_torch.api.DEVICE_BACKENDS``, e.g. ``batched-device``,
+``soa-device``) and ``None`` to a host backend.  A backend the port does
+not have yet raises the registry's ``KeyError`` rather than being
+replaced by another.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..api import ClusterConfig, build_index
+from ..api import DEVICE_BACKENDS, ClusterConfig, build_index
 from ..models.registry import ModelAPI
 from ..obs import NULL_OBS, Obs
 
@@ -81,20 +84,20 @@ class ServingEngine:
         # ("sharded", "tiered") come with later slices and raise here
         if cluster_tier is not None:
             cluster_backend = "tiered"
-        self.clusterer = (
-            build_index(ClusterConfig(d=embed_dim, k=4, t=6, eps=0.6,
-                                      backend=cluster_backend,
-                                      workers=cluster_workers,
-                                      transport=cluster_transport,
-                                      replicas=cluster_replicas,
-                                      sample_rate=(cluster_tier
-                                                   if cluster_tier is not None
-                                                   else 1.0),
-                                      obs=obs.enabled)
-                        .with_shards(cluster_shards),
-                        device=str(self.device))
-            if cluster_requests else None
-        )
+        self.clusterer = None
+        if cluster_requests:
+            ccfg = ClusterConfig(
+                d=embed_dim, k=4, t=6, eps=0.6, backend=cluster_backend,
+                workers=cluster_workers, transport=cluster_transport,
+                replicas=cluster_replicas,
+                sample_rate=(cluster_tier if cluster_tier is not None
+                             else 1.0),
+                obs=obs.enabled).with_shards(cluster_shards)
+            # the model's device only for a backend that runs on one; a
+            # host backend gets None (an explicit device would raise)
+            self.clusterer = build_index(
+                ccfg, device=(str(self.device)
+                              if ccfg.backend in DEVICE_BACKENDS else None))
         # sliding admission window: evicted at the head on every submit
         # past capacity
         self._req_window: Deque[int] = collections.deque()

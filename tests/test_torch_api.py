@@ -39,7 +39,8 @@ def _assert_same_snapshot(a, b):
 
 
 def test_registry_holds_the_ported_backends():
-    ported = BACKENDS + ("emz-static", "naive", "emz-fixed")
+    ported = BACKENDS + ("emz-static", "naive", "emz-fixed", "dynamic",
+                         "batched", "batched-device")
     assert api.available_backends() == tuple(sorted(ported))
     assert set(ported) <= set(jax_api.available_backends())
 

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
 version, the ``soa-device`` engine on ``cuda`` against the host ``soa``
-engine, and the dense LM's prefill (through the flash-attention kernel)
+engine, ``batched-device`` on ``cuda`` against ``batched-device`` on the
+CPU, and the dense LM's prefill (through the flash-attention kernel)
 against its decode.  Tolerance zero for the integer kernels (for
 ``eps_neighbor_counts`` because the kernel and its plain version round
 every f32 product and sum in the same order).  ``flash_attention`` sums
@@ -286,6 +287,99 @@ def test_soa_device_on_cuda_matches_host_soa(cuda, orphans):
     dev.check_invariants()
     for key, val in dev.snapshot()["state"].items():
         np.testing.assert_array_equal(val, host.snapshot()["state"][key])
+
+
+def _mixed_stream(n=400, d=4, seed=0, p_delete=0.25):
+    """``tests/test_api.py``'s mixed Insert/Delete stream (auto ids)."""
+    from repro_torch.api import Delete, Insert
+
+    X, _ = blobs(n=n, d=d, n_clusters=4, cluster_std=0.15, seed=seed)
+    rng = np.random.default_rng(seed)
+    events, alive, nxt = [], [], 0
+    for j in range(n):
+        events.append(Insert(X[j]))
+        alive.append(nxt)
+        nxt += 1
+        if rng.random() < p_delete and len(alive) > 10:
+            events.append(Delete(alive.pop(int(rng.integers(len(alive))))))
+    return events
+
+
+def _blobs_stream(n=20_000, seed=0):
+    """The smoke stream at 20,000 points: inserts in batches of 1000,
+    then 25% deleted in batches of 1000, as ``(op, payload)`` steps."""
+    X, _ = blobs(n=n, d=10, n_clusters=10, seed=seed)
+    victims = np.random.default_rng(seed + 1).permutation(n)[:n // 4]
+    return ([("insert", X[b:b + 1000]) for b in range(0, n, 1000)]
+            + [("delete", [int(i) for i in victims[b:b + 1000]])
+               for b in range(0, len(victims), 1000)])
+
+
+@pytest.mark.parametrize("stream", ["mixed", "blobs-20k"])
+def test_batched_device_on_cuda_matches_cpu(cuda, stream, monkeypatch):
+    """``batched-device`` on the card against ``batched-device`` on the
+    CPU (the plain ``lsh_hash``): the same handles, deltas in order,
+    labels and ``state_dict``; every batch's keys on the card equal the
+    plain version's on the same uploaded points, and the standalone
+    ``lsh_hash`` entry launches once per insert batch, nothing else."""
+    real = ops.lsh_hash
+    on_card = []
+
+    def checked(x, eta, mixers, *, inv_cell, impl=None):
+        out = real(x, eta, mixers, inv_cell=inv_cell, impl=impl)
+        if x.device.type == "cuda" and impl is None:
+            on_card.append(x.shape[0])
+            assert torch.equal(out, real(x, eta, mixers, inv_cell=inv_cell,
+                                         impl="ref"))
+        return out
+
+    monkeypatch.setattr(ops, "lsh_hash", checked)
+    if stream == "mixed":
+        cfg = ClusterConfig(d=4, k=8, t=8, eps=0.45, seed=1)
+        events = _mixed_stream(seed=1)
+        steps = [("apply", events[s:s + 40])
+                 for s in range(0, len(events), 40)]
+    else:
+        cfg = ClusterConfig(d=10, k=10, t=10, eps=0.75, seed=0)
+        steps = _blobs_stream()
+    cfg = cfg.replace(backend="batched-device")
+    dev = build_index(cfg)
+    host = build_index(cfg, device="cpu")
+    assert dev.engine.device.type == "cuda"
+    assert host.engine.device.type == "cpu"
+    dev.drain_deltas()
+    host.drain_deltas()
+    ops.reset_launch_counts()
+    n_insert_batches = 0
+    for n, (op, arg) in enumerate(steps):
+        if op == "apply":
+            assert dev.apply(arg) == host.apply(arg)
+            kinds = [type(e).__name__ for e in arg]
+            n_insert_batches += sum(
+                1 for j, k in enumerate(kinds)
+                if k == "Insert" and (j == 0 or kinds[j - 1] != "Insert"))
+        elif op == "insert":
+            assert dev.insert_batch(arg) == host.insert_batch(arg)
+            n_insert_batches += 1
+        else:
+            dev.delete_batch(arg)
+            host.delete_batch(arg)
+        assert dev.drain_deltas() == host.drain_deltas()
+        if n % 5 == 4 or n == len(steps) - 1:
+            assert dev.labels() == host.labels()
+    assert len(on_card) == n_insert_batches
+    entries = ops.entry_launch_counts()
+    assert {k: v for k, v in entries.items() if v} == \
+        {"lsh_hash": n_insert_batches}
+    assert ops.launch_counts()["lsh_hash"] == n_insert_batches
+    assert dev.stats() == host.stats()
+    sa, sb = dev.snapshot()["state"], host.snapshot()["state"]
+    for key in sa:
+        np.testing.assert_array_equal(sa[key], sb[key], err_msg=key)
+    dev.check_invariants()
+    rest = restore_index(dev.snapshot())
+    assert rest.engine.device.type == "cuda"
+    assert rest.labels() == dev.labels()
 
 
 # (b, hq, hkv, sq, skv, dh, causal, window, q_offset): tests/test_kernels.py's

@@ -5,13 +5,15 @@ Both engines serve the same requests with the same parameters (drawn by
 every request must get the same ``out_tokens`` — greedy argmax over
 logits that agree to ~1e-6 (``tests/test_torch_models.py``) — and, with
 request clustering on the ``soa`` backend on both sides, the same
-``cluster``.  Also: a request's output does not depend on the requests
+``cluster``; so do the paper's engines (``batched``, the default, and
+``dynamic``).  Also: a request's output does not depend on the requests
 sharing its batch (the port's counterpart of
 ``tests/test_pipeline_serving.py::test_serving_engine_isolation_between_slots``),
 and ``python -m repro_torch.launch.serve --smoke --device cpu`` runs.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -164,13 +166,70 @@ def test_engine_obs_and_clusterer_device():
     assert all(d.cluster is not None for d in done.values())
 
 
-@pytest.mark.parametrize("backend", ["batched", "dynamic"])
-def test_unported_cluster_backend_raises(backend):
-    cfg = get_config("granite-20b").smoke()
-    model = build_model(cfg, device="cpu")
-    with pytest.raises(KeyError, match="unknown backend"):
-        ServingEngine(model, model.init(0), batch=2, kv_len=16,
-                      cluster_requests=True, cluster_backend=backend)
+@pytest.mark.parametrize("backend", [None, "dynamic"],
+                         ids=["batched-default", "dynamic"])
+def test_clustered_serving_matches_jax_dict_engines(backend):
+    """Request clustering on the paper's engines on both sides: the
+    default backend (``batched``, no ``cluster_backend`` given) and
+    ``dynamic`` give the same clusters (forest roots), schedule and
+    tokens as the JAX engine."""
+    jm, jp, tm, tp = _models("granite-20b")
+    reqs = _requests(14, tm.cfg.vocab_size, seed=2, embed=True)
+    kw = dict(batch=4, kv_len=32, cluster_requests=True)
+    if backend is not None:
+        kw["cluster_backend"] = backend
+    jdone = _serve(JEngine, JRequest, jm, jp, reqs, **kw)
+    tdone = _serve(ServingEngine, Request, tm, tp, reqs, **kw)
+    assert sorted(tdone) == list(range(14))
+    for rid in jdone:
+        assert tdone[rid].cluster == jdone[rid].cluster, rid
+        assert tdone[rid].out_tokens == jdone[rid].out_tokens, rid
+    # the three embedding centres give three clusters
+    assert len({d.cluster for d in tdone.values()}) == 3
+    eng = ServingEngine(tm, tp, **kw)
+    assert type(eng.clusterer.engine).__name__ == (
+        "DynamicDBSCAN" if backend else "BatchedDynamicDBSCAN")
+    assert not getattr(eng.clusterer.engine, "use_device", False)
+
+
+def test_engine_gives_its_device_only_to_device_backends(monkeypatch):
+    """The model's device goes to ``batched-device`` / ``soa-device``;
+    a host backend gets ``None``, so the default works on the card."""
+    from repro_torch.serving import engine as serving_engine
+
+    seen = {}
+
+    def recording_build(cfg, device=None):
+        seen[cfg.backend] = device
+        return object()
+
+    monkeypatch.setattr(serving_engine, "build_index", recording_build)
+    on_card = types.SimpleNamespace(device=torch.device("cuda"),
+                                    decode_init=lambda b, kv_len: None)
+    for backend in (None, "dynamic", "soa", "batched-device", "soa-device"):
+        kw = {} if backend is None else {"cluster_backend": backend}
+        ServingEngine(on_card, None, batch=2, kv_len=16,
+                      cluster_requests=True, **kw)
+    assert seen == {"batched": None, "dynamic": None, "soa": None,
+                    "batched-device": "cuda", "soa-device": "cuda"}
+
+
+def test_no_silent_host_fallback_for_a_device():
+    """An explicit device on a host backend still raises, and a device
+    backend on a card that is not there raises rather than run on the
+    host."""
+    from repro_torch.api import build_index
+
+    with pytest.raises(ValueError, match="host only"):
+        build_index("batched", d=8, k=4, t=6, eps=0.6, device="cuda")
+    if torch.cuda.is_available():
+        return
+    on_card = types.SimpleNamespace(device=torch.device("cuda"),
+                                    decode_init=lambda b, kv_len: None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(on_card, None, batch=2, kv_len=16,
+                      cluster_requests=True,
+                      cluster_backend="batched-device")
 
 
 def test_serve_cli_runs_on_cpu(capsys):
@@ -184,3 +243,19 @@ def test_serve_cli_runs_on_cpu(capsys):
     assert all(d.cluster is not None for d in done.values())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         serve.main(["--arch", "mamba2-780m", "--smoke", "--device", "cpu"])
+
+
+def test_serve_cli_cluster_default_matches_jax(capsys):
+    """``--cluster`` without ``--cluster-backend`` runs on ``batched``
+    and gives the JAX launcher's clusters (the embeddings and the
+    schedule come from the same seed; no EOS, so the same releases)."""
+    from repro.launch import serve as jax_serve
+
+    argv = ["--arch", "granite-20b", "--smoke", "--requests", "6",
+            "--max-new", "3", "--cluster"]
+    done = serve.main(argv + ["--device", "cpu"])
+    jdone = jax_serve.main(argv)
+    assert "served 6 requests, 18 tokens" in capsys.readouterr().out
+    assert {r: d.cluster for r, d in done.items()} == \
+        {r: d.cluster for r, d in jdone.items()}
+    assert all(d.cluster is not None for d in done.values())

@@ -32,6 +32,45 @@ def test_main_path_runs_on_cpu():
     assert len(last["restored"]) == 3000 - 750
 
 
+def test_dict_path_runs_on_cpu():
+    """Phase 3b at a tiny size: batched-device on the CPU (the plain
+    ``lsh_hash``) over phase 3's stream, equal to phase 3's host soa
+    labels and deltas; no kernel launches on the CPU."""
+    metrics, last = chip_smoke.run_main_path(3000, "cpu")
+    kept = last["host_stream"]
+    assert len(kept["insert_deltas"]) == 3 and len(kept["labels"]) == 0
+    assert len(kept["delete_deltas"]) == 1
+    dm, dl = chip_smoke.run_dict_path(3000, "cpu", kept)
+    assert dm["points"] == 3000 and dm["cut"] and dm["deleted"] == 750
+    assert dm["labels_equal_host_soa"] and dm["restored_forest_equal"]
+    assert dm["labels_compared"] == 2
+    assert dm["ari_after_inserts"] == metrics["ari_after_inserts"]
+    assert dm["ari_after_deletes"] == metrics["ari_after_deletes"]
+    assert dm["deltas"] == metrics["deltas"]
+    assert dm["stats"]["n_links"] > 0 and dm["stats"]["n_cuts"] > 0
+    assert dm["launches"] == {k: 0 for k in dm["launches"]}
+    assert 0 < dm["hash_call_share_of_insert"] < 1
+    assert dl["x"].shape == (1000, chip_smoke.D)
+    assert dl["keys"].shape == (1000, chip_smoke.T, 2)
+
+
+def test_dict_path_refuses_a_different_stream():
+    """The dict phase fails, not passes, when the host engine's results
+    it is held against differ."""
+    import numpy as np
+
+    _metrics, last = chip_smoke.run_main_path(2000, "cpu")
+    kept = last["host_stream"]
+    bad = kept["insert_deltas"][1].copy()
+    bad[0, 2] = 10**6
+    kept["insert_deltas"][1] = bad
+    with pytest.raises(AssertionError, match="batch 1: insert deltas"):
+        chip_smoke.run_dict_path(2000, "cpu", kept)
+    kept["insert_deltas"][1] = np.zeros((0, 3), np.int64)
+    with pytest.raises(AssertionError, match="batch 1: insert deltas"):
+        chip_smoke.run_dict_path(2000, "cpu", kept)
+
+
 def test_baselines_path_runs_on_cpu():
     metrics, x = chip_smoke.run_baselines(2500, "cpu")
     assert metrics["points"] == 2500 and metrics["cut"]
@@ -39,6 +78,7 @@ def test_baselines_path_runs_on_cpu():
         # the metrics round: a perfect labelling may give 1 + 2e-16
         assert 0.5 < metrics[backend]["ari"] < 1.0 + 1e-9
         assert 0.5 < metrics[backend]["nmi"] < 1.0 + 1e-9
+    assert metrics["dynamic"]["restore_labels_equal"]
     assert metrics["naive"]["restore_labels_equal"]
     assert metrics["emz-static"]["restore_labels_equal"]
     # the CPU runs the plain version, which counts no launch
