@@ -4,7 +4,8 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--points N]
 
-Phases (1-3, 3b, 4-7), each of which raises on failure (exit code != 0):
+Phases (1-3, 3b-3d, 4-7), each of which raises on failure (exit code
+!= 0):
 
 1. device  — print the card (``nvidia-smi`` name and power limit, torch's
              device name); no CUDA device is a failure.
@@ -51,6 +52,35 @@ Phases (1-3, 3b, 4-7), each of which raises on failure (exit code != 0):
              seconds of the hash call (upload, launch, download) against
              the rest of an insert batch, and the kernel at the last
              batch per call beside its plain version and its bound.
+3c. approx — the sampled-core engine (``core.approx``) on its device
+             path, ``ApproxIndex(cfg, SampledCoreDBSCAN(...,
+             use_device=True, device="cuda"))``, whose insert batch is one
+             launch of ``bucket_insert_pass``'s masked two-table route:
+             (a) phase 3's stream at rate 0.5 (k_s = 5), no ``label()``
+             calls, beside the same engine on the host: every batch's
+             sorted deltas, ``labels()`` at every 10th batch and at both
+             ends, snapshot + restore (equal labels, ``check_invariants``)
+             and one more batch into the restore beside a host restore
+             must be equal; the masked pass and ``lsh_hash_resolve`` once
+             per insert batch and no other bucket or hash entry; both
+             mirrors equal to the host tables after the inserts; the ARI
+             against phase 3's exact labels is reported.  (b) Phase 3's
+             stream at rate 1.0 on the card: every batch's deltas and the
+             labels must equal phase 3's host ``soa`` results.  (c) The
+             tier's operating point (``benchmarks/quality_speed.py``
+             FULL: 36,000 points through a 24,000-point window, batches
+             of 1000, d=8, 8 clusters, std 0.5, k=256, t=10, eps=0.5,
+             data seed 3) at rate 0.1 (k_s = 26), device against host as
+             in (a), then the host twin and the host ``soa`` engine timed
+             alone: insert and delete throughput of all three, the ARI of
+             the final window against ``soa``.
+3d. tiered — ``build_index(ClusterConfig(backend="tiered",
+             sample_rate=0.1, obs=True))`` (both tiers on the host, no
+             kernel) over (c)'s stream: update and label-serving
+             throughput; after the ``exact_labels()`` barrier the
+             ``tiered.divergence_ari`` and ``tiered.lag`` gauges and the
+             escalations; the back tier's labels must equal (c)'s host
+             ``soa`` run; ``close()`` must stop the verifier thread.
 4. baselines — the paper's Table-2 streaming protocol at its default
              scale (``benchmarks/table2.py``, scale 0.1): blobs n=20,000,
              d=10, 10 clusters, k=10, t=10, eps=0.75, batches of 1000
@@ -108,7 +138,11 @@ Phases (1-3, 3b, 4-7), each of which raises on failure (exit code != 0):
              first result must equal what the main path computed), and
              the host round trip of one batch's stats is timed in turns
              against the sequence of standalone calls the engine made
-             before the fused pass (old, new, new, old); ``eps_neighbor_counts`` at the
+             before the fused pass (old, new, new, old); the pass's
+             masked route at phase 3c (a)'s last batch (its result equal
+             to the path's, then with ids out of range and all-false and
+             all-true masks, twice in a row, timed and profiled);
+             ``eps_neighbor_counts`` at the
              main path's points (200,000 x 10) and at 20,000 x 10, beside
              a blocked ``torch.matmul`` composite (TF32 off; several
              calls, so no library column), at covertype's width (blobs
@@ -128,10 +162,12 @@ Phases (1-3, 3b, 4-7), each of which raises on failure (exit code != 0):
 
 The line before the last is one JSON object with a ``kernels`` list (all
 five kernels and the ``lsh_hash_resolve`` and fused
-``bucket_insert_pass`` routes; ``lsh_hash``'s entry also gives its
+``bucket_insert_pass`` routes, the latter's masked route with its
+launches on the approx path; ``lsh_hash``'s entry also gives its
 launches on the dict path); the last line is ``{"ok": true,
 "device": {...}}``.
-``--points`` cuts the main and dict streams only (the cut is printed);
+``--points`` cuts the main, dict and approx streams only (the cut is
+printed);
 d, k, t, eps and the batch never change.
 """
 
@@ -170,6 +206,10 @@ KERNEL_SOURCES = {
     # the fused route of the two above, which the main path takes
     "bucket_insert_pass": ("src/repro_torch/kernels/csrc/bucket_ops.cu",
                            "src/repro/kernels/bucket_ops.py:117"),
+    # its masked two-table route, which the sampled-core path takes
+    "bucket_insert_pass_masked": ("src/repro_torch/kernels/csrc/"
+                                  "bucket_ops.cu",
+                                  "src/repro/kernels/bucket_ops.py:117"),
     "eps_neighbor_counts": ("src/repro_torch/kernels/csrc/pairwise_dist.cu",
                             "src/repro/kernels/pairwise_dist.py:60"),
     # the bf16 route (tensor cores), which the main path takes
@@ -184,6 +224,15 @@ MAIN_KERNELS = ("lsh_hash", "slot_counts", "bucket_core_stats")
 #: the C entry points the main path launches them through: the
 #: standalone entries of the three kernels must not run there
 MAIN_ENTRIES = ("lsh_hash_resolve", "bucket_insert_pass")
+# the sampled-core tier (phase 3c): phase 3's stream at rate 0.5 (k_s =
+# 5), and the tier's own operating point, benchmarks/quality_speed.py's
+# FULL workload, at rate 0.1 (k_s = 26), the rate its acceptance block
+# reads; phase 3d runs the tiered index over the latter
+APPROX_RATE = 0.5
+TIER_RATE = 0.1
+TIER_POINT = dict(n_stream=36000, window=24000, batch=1000, d=8,
+                  n_clusters=8, cluster_std=0.5, k=256, t=10, eps=0.5,
+                  data_seed=3)
 # Table 2 at its default scale: benchmarks/table2.py run(scale=0.1) on
 # blobs, with benchmarks/common.py stream_eval's protocol
 BASELINES = ("dynamic", "naive", "emz-static", "emz-fixed")
@@ -798,6 +847,404 @@ def time_dict_hash(last, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# approx path: the sampled-core tier, its stats pass on the masked route
+# ---------------------------------------------------------------------- #
+def approx_index(cfg, device: str, use_device: bool):
+    """The ``approx`` backend's index at ``cfg.sample_rate`` with its
+    engine on the device path (``use_device``, on ``device``) or on the
+    host: the reference's way to the sampled tier's kernels, which the
+    backend's factory keeps on the host."""
+    from repro_torch.api import ApproxIndex
+    from repro_torch.core.approx import SampledCoreDBSCAN
+
+    return ApproxIndex(cfg, SampledCoreDBSCAN(
+        cfg.d, cfg.k, cfg.t, cfg.eps, seed=cfg.seed,
+        attach_orphans=cfg.attach_orphans, repair=cfg.repair,
+        sample_rate=cfg.sample_rate, approx_seed=cfg.approx_seed,
+        use_device=use_device, device=device))
+
+
+def keep_last_pass(eng) -> dict:
+    """Wrap the engine's two-table stats pass so that the last pass's
+    inputs (slots, row mask, both host tables before it) and its raw
+    support (before the host zeroes the non-sampled rows) are kept in
+    the dict returned; a few small host copies a batch."""
+    seen = {}
+    inner = eng._dpass.run
+
+    def run(slots, host_sizes, k, host_core_sizes=None, row_mask=None):
+        before = (host_sizes.copy(), host_core_sizes.copy())
+        out = inner(slots, host_sizes, k, host_core_sizes, row_mask)
+        seen.update(slots=slots.copy(), mask=row_mask.copy(), k=k,
+                    sizes_before=before[0], core_before=before[1],
+                    sizes=host_sizes.copy(), core=host_core_sizes.copy(),
+                    support=out[-1].copy())
+        return out
+    eng._dpass.run = run
+    return seen
+
+
+def drive(index, X, batches, *, victims=(), window=None, check=None):
+    """Drive ``index`` through inserts of ``batches`` (row ranges of X),
+    deltas drained every batch, ``labels()`` every 10th batch; with
+    ``window`` the oldest points past it are deleted after each insert,
+    else ``victims`` afterwards in batches of BATCH.  ``check(kind, b,
+    arg, got)`` sees every result ("insert": arg the row range, got (ids,
+    sorted deltas); "delete": arg the ids, got the sorted deltas;
+    "labels", "labels_after_inserts", "labels_end": got the dict).  Only
+    the index's own calls are timed."""
+    check = check or (lambda *a: None)
+    ins_s = del_s = labels_s = 0.0
+    ids, ptr, n_del = [], 0, 0
+
+    def delete(b, drop):
+        nonlocal del_s, n_del
+        t0 = time.perf_counter()
+        index.delete_batch(drop)
+        deltas = index.drain_deltas()
+        del_s += time.perf_counter() - t0
+        check("delete", b, drop, sorted(deltas))
+        n_del += len(drop)
+
+    for b, (lo, hi) in enumerate(batches):
+        t0 = time.perf_counter()
+        got = index.insert_batch(X[lo:hi])
+        deltas = index.drain_deltas()
+        ins_s += time.perf_counter() - t0
+        check("insert", b, (lo, hi), (got, sorted(deltas)))
+        ids += got
+        if window is not None and len(ids) - ptr > window:
+            drop = ids[ptr:len(ids) - window]
+            ptr += len(drop)
+            delete(b, drop)
+        if b % 10 == 9:
+            t0 = time.perf_counter()
+            lab = index.labels()
+            labels_s += time.perf_counter() - t0
+            check("labels", b, None, lab)
+    lab_ins = index.labels()
+    check("labels_after_inserts", None, None, lab_ins)
+    for n, b in enumerate(range(0, len(victims), BATCH)):
+        delete(n, [int(i) for i in victims[b:b + BATCH]])
+    lab_end = index.labels()
+    check("labels_end", None, None, lab_end)
+    return {"insert_s": ins_s, "delete_s": del_s, "labels_s": labels_s,
+            "inserted": sum(hi - lo for lo, hi in batches),
+            "deleted": n_del, "labels_after_inserts": lab_ins,
+            "labels": lab_end, "live": ids[ptr:]}
+
+
+def against_twin(twin, X, tag: str):
+    """A ``drive`` check that applies every call to ``twin`` as well and
+    holds each result equal to the twin's."""
+    def check(kind, b, arg, got):
+        if kind == "insert":
+            lo, hi = arg
+            ok = twin.insert_batch(X[lo:hi]) == got[0] and \
+                sorted(twin.drain_deltas()) == got[1]
+        elif kind == "delete":
+            twin.delete_batch(arg)
+            ok = sorted(twin.drain_deltas()) == got
+        else:
+            ok = twin.labels() == got
+        if not ok:
+            raise AssertionError(f"{tag}: {kind} {b} differs from the "
+                                 "host twin's")
+    return check
+
+
+def against_kept(kept, tag: str):
+    """A ``drive`` check against phase 3's host soa results: every
+    batch's sorted deltas, ``labels()`` at every 10th batch and at both
+    ends."""
+    import numpy as np
+
+    def check(kind, b, arg, got):
+        if kind == "insert":
+            ok = got[0] == list(range(*arg)) and np.array_equal(
+                delta_array(got[1]), kept["insert_deltas"][b])
+        elif kind == "delete":
+            ok = np.array_equal(delta_array(got), kept["delete_deltas"][b])
+        else:
+            want = {"labels": lambda: kept["labels"][b],
+                    "labels_after_inserts":
+                        lambda: kept["labels_after_inserts"],
+                    "labels_end": lambda: kept["labels_after_deletes"]}
+            ok = np.array_equal(label_array(got), want[kind]())
+        if not ok:
+            raise AssertionError(f"{tag}: {kind} {b} differs from phase "
+                                 "3's host soa engine")
+    return check
+
+
+def ari_of(labels: dict, ref) -> float:
+    """ARI of a ``labels()`` dict against a reference labelling (a dict,
+    or a ``label_array`` [ids; labels]) over the reference's ids."""
+    from repro_torch.core.metrics import adjusted_rand_index
+
+    if isinstance(ref, dict):
+        ids = sorted(ref)
+        want = [ref[i] for i in ids]
+    else:
+        ids, want = [int(i) for i in ref[0]], [int(v) for v in ref[1]]
+    return adjusted_rand_index(want, [labels[i] for i in ids])
+
+
+def approx_entries_check(entries, n_batches: int, tag: str) -> None:
+    """The masked insert pass and the hash-and-resolve pass once per
+    insert batch, no other bucket or hash entry."""
+    want = {"bucket_insert_pass_masked": n_batches,
+            "lsh_hash_resolve": n_batches, "bucket_insert_pass": 0,
+            "slot_counts": 0, "bucket_core_stats": 0, "lsh_hash": 0}
+    got = {k: entries[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{tag}: kernel entries {got}, expected "
+                             f"{want}")
+
+
+def tier_stream():
+    """The tier's operating point (``benchmarks/quality_speed.py``
+    FULL): its points, its insert batches as row ranges."""
+    from repro_torch.data import blobs
+
+    p = TIER_POINT
+    X, _ = blobs(n=p["n_stream"], d=p["d"], n_clusters=p["n_clusters"],
+                 cluster_std=p["cluster_std"], seed=p["data_seed"])
+    return X, [(s, min(p["n_stream"], s + p["batch"]))
+               for s in range(0, p["n_stream"], p["batch"])]
+
+
+def run_approx_path(n_points: int, device: str, kept: dict):
+    """Phase 3c: the sampled-core engine's device path (a) at rate 0.5
+    over phase 3's stream beside its host twin, (b) at rate 1.0 over the
+    same stream against phase 3's host soa results, (c) at the tier's
+    operating point at rate 0.1 beside its host twin, then the twin and
+    the host soa engine timed alone.  Returns (metrics, (a)'s last masked
+    pass, (c)'s host soa labels)."""
+    from repro_torch.api import ClusterConfig, build_index, restore_index
+    from repro_torch.data import DATASET_SPECS, blobs
+    from repro_torch.kernels import ops
+
+    _n, d, n_clusters = DATASET_SPECS["blobs"]
+    X, _y = blobs(n=n_points, d=d, n_clusters=n_clusters, seed=SEED)
+    n_batches = -(-n_points // BATCH)
+    batches = [(b * BATCH, min(n_points, (b + 1) * BATCH))
+               for b in range(n_batches)]
+    victims = kept["victims"]
+    if len(kept["insert_deltas"]) != n_batches:
+        raise AssertionError(f"approx: phase 3 kept "
+                             f"{len(kept['insert_deltas'])} insert batches, "
+                             f"this stream has {n_batches}")
+    cfg = ClusterConfig(d=D, k=K, t=T, eps=EPS, seed=SEED,
+                        backend="approx", sample_rate=APPROX_RATE)
+    out = {"points": n_points, "cut": n_points != FULL_POINTS,
+           "d": D, "k": K, "t": T, "eps": EPS, "batch": BATCH}
+
+    # (a) rate 0.5: the device engine and its host twin at every batch
+    dev = approx_index(cfg, device, True)
+    host = approx_index(cfg, "cpu", False)
+    eng = dev.engine
+    if eng._dpass.core_sizes is None or eng.device.type != device:
+        raise AssertionError("3c(a): the device engine holds no mirror of "
+                             "the sampled sizes, or runs elsewhere")
+    last = keep_last_pass(eng)
+    dev.drain_deltas()
+    host.drain_deltas()
+    ops.reset_launch_counts()
+    t_path = time.perf_counter()
+    seen_fresh = []
+
+    def twin_check(kind, b, arg, got, inner=against_twin(host, X, "3c(a)")):
+        inner(kind, b, arg, got)
+        if kind == "labels_after_inserts":
+            # both mirrors fresh and equal to the host tables
+            seen_fresh.append(eng._dpass.fresh)
+            eng._check_device_mirrors()
+    run_a = drive(dev, X, batches, victims=victims, check=twin_check)
+    launches_a = ops.launch_counts()
+    entries_a = ops.entry_launch_counts()
+    if seen_fresh != [True]:
+        raise AssertionError("3c(a): a mirror went stale in the inserts")
+    t0 = time.perf_counter()
+    snap = dev.snapshot()
+    rest = approx_index(cfg, device, True)
+    rest.restore(snap)
+    if rest.labels() != run_a["labels"]:
+        raise AssertionError("3c(a): labels differ after snapshot + "
+                             "restore")
+    rest.check_invariants()
+    restore_s = time.perf_counter() - t0
+    # one more batch into the restored index beside a host restore: the
+    # pass uploads both tables once, and their mirrors then hold them
+    host_rest = approx_index(cfg, "cpu", False)
+    host_rest.restore(snap)
+    again = X[victims[:BATCH]]
+    if rest.insert_batch(again) != host_rest.insert_batch(again) or \
+            rest.labels() != host_rest.labels():
+        raise AssertionError("3c(a): the restored index differs from its "
+                             "host twin after a batch")
+    rest.check_invariants()
+    dp = rest.engine._dpass
+    if dp.n_size_uploads != 1 or not dp.fresh:
+        raise AssertionError("3c(a): the restored tables were not "
+                             "uploaded once")
+    wall_a = time.perf_counter() - t_path
+    if device != "cpu":
+        approx_entries_check(entries_a, n_batches, "3c(a)")
+    out["a"] = {
+        "sample_rate": APPROX_RATE, "core_k": eng.core_k,
+        "n_sampled": eng.n_sampled(), "batches": n_batches,
+        "insert_pts_per_s": run_a["inserted"] / run_a["insert_s"],
+        "delete_pts_per_s": run_a["deleted"] / run_a["delete_s"],
+        "insert_s": run_a["insert_s"], "delete_s": run_a["delete_s"],
+        "labels_s": run_a["labels_s"], "restore_s": restore_s,
+        "wall_s": wall_a,
+        "ari_vs_exact_after_inserts": ari_of(
+            run_a["labels_after_inserts"], kept["labels_after_inserts"]),
+        "ari_vs_exact_after_deletes": ari_of(
+            run_a["labels"], kept["labels_after_deletes"]),
+        "stats_passes": eng._dpass.n_passes,
+        "size_uploads": eng._dpass.n_size_uploads,
+        "launches": launches_a, "entry_launches": entries_a,
+        "deltas_equal_host": True, "labels_equal_host": True,
+        "restore_labels_equal": True, "mirrors_equal_host": True,
+    }
+    del dev, host, rest, host_rest, snap
+    gc.collect()
+
+    # (b) rate 1.0 on the card against phase 3's host soa results
+    dev = approx_index(cfg.replace(sample_rate=1.0), device, True)
+    dev.drain_deltas()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_b = drive(dev, X, batches, victims=victims,
+                  check=against_kept(kept, "3c(b)"))
+    wall_b = time.perf_counter() - t0
+    entries_b = ops.entry_launch_counts()
+    if device != "cpu":
+        approx_entries_check(entries_b, n_batches, "3c(b)")
+    out["b"] = {
+        "sample_rate": 1.0, "core_k": dev.engine.core_k,
+        "insert_pts_per_s": run_b["inserted"] / run_b["insert_s"],
+        "delete_pts_per_s": run_b["deleted"] / run_b["delete_s"],
+        "wall_s": wall_b, "launches": ops.launch_counts(),
+        "entry_launches": entries_b, "labels_equal_phase3_soa": True,
+        "deltas_equal_phase3_soa": True,
+    }
+    del dev, X
+    gc.collect()
+
+    # (c) the tier's operating point at rate 0.1: the device engine
+    #     beside its host twin, then the twin and the exact engine alone
+    p = TIER_POINT
+    Xc, cb = tier_stream()
+    ccfg = ClusterConfig(d=p["d"], k=p["k"], t=p["t"], eps=p["eps"],
+                         seed=0, backend="approx", sample_rate=TIER_RATE)
+    dev = approx_index(ccfg, device, True)
+    host = approx_index(ccfg, "cpu", False)
+    dev.drain_deltas()
+    host.drain_deltas()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_c = drive(dev, Xc, cb, window=p["window"],
+                  check=against_twin(host, Xc, "3c(c)"))
+    wall_c = time.perf_counter() - t0
+    launches_c = ops.launch_counts()
+    entries_c = ops.entry_launch_counts()
+    rest = restore_index(dev.snapshot())  # the host backend restores it
+    if rest.labels() != run_c["labels"]:
+        raise AssertionError("3c(c): labels differ after snapshot + "
+                             "restore")
+    rest.check_invariants()
+    if device != "cpu":
+        approx_entries_check(entries_c, len(cb), "3c(c)")
+    host_t = drive(approx_index(ccfg, "cpu", False), Xc, cb,
+                   window=p["window"])
+    soa = build_index(ccfg.replace(backend="soa", sample_rate=1.0))
+    soa_t = drive(soa, Xc, cb, window=p["window"])
+
+    def rates(r):
+        return {"insert_pts_per_s": r["inserted"] / r["insert_s"],
+                "delete_pts_per_s": r["deleted"] / r["delete_s"],
+                "insert_s": r["insert_s"], "delete_s": r["delete_s"]}
+    out["c"] = {
+        "workload": dict(p), "sample_rate": TIER_RATE,
+        "core_k": dev.engine.core_k, "batches": len(cb),
+        "deleted": run_c["deleted"], "device": rates(run_c),
+        "host": rates(host_t), "host_soa": rates(soa_t),
+        "insert_speedup_device_vs_host_soa":
+            soa_t["insert_s"] / run_c["insert_s"],
+        "insert_speedup_host_vs_host_soa":
+            soa_t["insert_s"] / host_t["insert_s"],
+        "ari_final_window_vs_soa": ari_of(run_c["labels"],
+                                          soa_t["labels"]),
+        "wall_s": wall_c, "launches": launches_c,
+        "entry_launches": entries_c, "deltas_equal_host": True,
+        "labels_equal_host": True, "restore_labels_equal": True,
+    }
+    return out, last, soa_t["labels"]
+
+
+def run_tiered_path(exact_labels: dict):
+    """Phase 3d: the tier's operating point through ``backend="tiered"``
+    (approx front at rate 0.1, soa back, both on the host, no kernel):
+    update and label-serving throughput, then, after the
+    ``exact_labels()`` barrier, the divergence ARI, the lag and the
+    escalations; the back tier must equal ``exact_labels`` (phase 3c's
+    host soa run of the same stream)."""
+    from repro_torch.api import ClusterConfig, build_index
+    from repro_torch.kernels import ops
+
+    p = TIER_POINT
+    Xc, cb = tier_stream()
+    cfg = ClusterConfig(d=p["d"], k=p["k"], t=p["t"], eps=p["eps"], seed=0,
+                        backend="tiered", sample_rate=TIER_RATE, obs=True)
+    idx = build_index(cfg)
+    ops.reset_launch_counts()
+    try:
+        run = drive(idx, Xc, cb, window=p["window"])
+        live = run["live"]
+        t0 = time.perf_counter()
+        served = idx.labels(live)
+        label_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        exact = idx.exact_labels()
+        barrier_s = time.perf_counter() - t0
+        m = idx.obs.snapshot()["metrics"]
+        stats = idx.stats()
+        if exact != exact_labels:
+            raise AssertionError("3d: the back tier's labels differ from "
+                                 "the host soa engine's")
+        if m["tiered.lag"]["value"] != 0:
+            raise AssertionError("3d: lag after the barrier")
+        idx.check_invariants()
+    finally:
+        idx.close()
+    if idx.verifier.is_alive():
+        raise AssertionError("3d: the verifier outlived close()")
+    if any(ops.launch_counts().values()):
+        raise AssertionError("3d: the tiered index launched a kernel")
+    n_ops = run["inserted"] + run["deleted"]
+    return {
+        "workload": dict(p), "sample_rate": TIER_RATE,
+        "update_pts_per_s": n_ops / (run["insert_s"] + run["delete_s"]),
+        "insert_pts_per_s": run["inserted"] / run["insert_s"],
+        "delete_pts_per_s": run["deleted"] / run["delete_s"],
+        "label_pts_per_s": len(live) / label_s, "labels_served": len(live),
+        "barrier_s": barrier_s,
+        "divergence_ari": m["tiered.divergence_ari"]["value"],
+        "lag": m["tiered.lag"]["value"],
+        "queue_depth": m["tiered.queue_depth"]["value"],
+        "hot_buckets": m["tiered.hot_buckets"]["value"],
+        "escalations": stats["escalations"],
+        "diff_rounds": stats["diff_rounds"],
+        "applied_batches": stats["applied_batches"],
+        "served_ari_vs_exact": ari_of(served, exact),
+        "back_equal_host_soa": True, "launches": ops.launch_counts(),
+    }
+
+
+# ---------------------------------------------------------------------- #
 # baselines path
 # ---------------------------------------------------------------------- #
 def run_baselines(n_points: int, device: str):
@@ -983,11 +1430,91 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def check_kernels(last, launches, card: str, x_base, build):
+def masked_check(ml, dev, record, card: str) -> None:
+    """``bucket_insert_pass``'s masked two-table route at the last insert
+    batch of phase 3c (a) (1000 x 10 slots, rate 0.5): its first result
+    from the tables before that batch must equal what the path computed;
+    then bit-exact against its plain version twice in a row on one pair
+    of tables, with the batch's ids and with ~10% of them out of range,
+    under the batch's mask, an all-false and an all-true one; timed per
+    call (CUDA events) beside the plain version, and on the device
+    (profiler).  Bound: the ids, the mask, both tables read once, the
+    entries each table's histogram touches written, the packed [sizes |
+    sampled sizes | support]; per id a compare and an atomic add, a mask
+    test and an atomic add, then a compare, a gather, a compare and an
+    add, and two copies per slot."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    slots = torch.from_numpy(ml["slots"]).to(dev)
+    mask = torch.from_numpy(ml["mask"]).to(dev)
+    sizes = torch.from_numpy(ml["sizes_before"]).to(dev)
+    core = torch.from_numpy(ml["core_before"]).to(dev)
+    k, ns = ml["k"], len(ml["sizes_before"])
+    n, t = slots.shape
+    first = ops.bucket_insert_pass(slots, sizes.clone(), k=k,
+                                   core_sizes=core.clone(), row_mask=mask)
+    want = torch.from_numpy(np.concatenate(
+        [ml["sizes"], ml["core"], ml["support"]])).to(dev)
+    if max_abs_err(first, want):
+        raise AssertionError("bucket_insert_pass (masked) differs from the "
+                             "approx path's stats of its last batch")
+    rng = np.random.default_rng(8)
+    bad = ml["slots"].copy()
+    hit = rng.random(bad.shape) < 0.1
+    bad[hit] = rng.choice([-3, -1, ns, ns + 5], size=int(hit.sum()))
+    bad = torch.from_numpy(bad).to(dev)
+    err = 0
+    for s in (slots, bad):
+        for m in (mask, torch.zeros_like(mask), torch.ones_like(mask)):
+            a, b, ca, cb = sizes.clone(), sizes.clone(), core.clone(), \
+                core.clone()
+            for _call in range(2):  # the second carries the first's tables
+                err = max(err, max_abs_err(
+                    ops.bucket_insert_pass(s, a, k=k, core_sizes=ca,
+                                           row_mask=m),
+                    ops.bucket_insert_pass(s, b, k=k, core_sizes=cb,
+                                           row_mask=m, impl="ref")),
+                    max_abs_err(a, b), max_abs_err(ca, cb))
+    # timed on scratch copies, which grow by a batch each call
+    sa, sc = sizes.clone(), core.clone()
+    buf = torch.empty(2 * ns + n, dtype=torch.int32, device=dev)
+
+    def fused():
+        return ops.bucket_insert_pass(slots, sa, k=k, core_sizes=sc,
+                                      row_mask=mask, out=buf)
+    ms = time_ms(fused)
+    plain_ms = time_ms(lambda: ops.bucket_insert_pass(
+        slots, sa, k=k, core_sizes=sc, row_mask=mask, out=buf, impl="ref"))
+    # one profiler session of this route alone: the unmasked route's
+    # kernel name holds the same words
+    device_ms = kernel_device_ms({"bucket_insert_pass": fused})[
+        "bucket_insert_pass"]
+    distinct = int(torch.unique(slots).numel())
+    distinct_m = int(torch.unique(slots[mask]).numel())
+    nbytes = (slots.numel() + 2 * ns + distinct + distinct_m + 2 * ns
+              + n) * 4 + n
+    row = record("bucket_insert_pass_masked", err, ms, plain_ms, nbytes,
+                 8 * slots.numel() + 2 * ns, None, device_ms=device_ms,
+                 replaces_also=KERNEL_SOURCES["bucket_core_stats"][1],
+                 route_of=["slot_counts", "bucket_core_stats"],
+                 path="approx (phase 3c (a), rate 0.5)", n=n, t=t,
+                 n_slots=ns, sampled_rows=int(mask.sum()), k=k)
+    print(f"bucket_insert_pass (masked) at {n} x {t}, {ns} slots, "
+          f"{int(mask.sum())} sampled rows, k_s {k}: {ms:.5f} ms per call, "
+          f"device {device_ms} ms, plain {plain_ms:.4f} ms, bound "
+          f"{row['bound_ms']:.7f} ms ({row['bound_by']}, {nbytes} B), "
+          f"launches on the approx path {row['launches']}  [{card}]",
+          flush=True)
+
+
+def check_kernels(last, launches, card: str, x_base, build, masked):
     """Bit-exact and timed comparison of each kernel with its plain
     version at its path's shapes (``x_base``: the baselines path's final
-    points; ``build``: the build phase's report); returns the ``kernels``
-    list."""
+    points; ``build``: the build phase's report; ``masked``: the last
+    masked insert pass of phase 3c (a)); returns the ``kernels`` list."""
     import numpy as np
     import torch
 
@@ -1021,6 +1548,7 @@ def check_kernels(last, launches, card: str, x_base, build):
             "library_ms": library_ms, "bytes": nbytes, "ops": nops,
             "card": card, **extra,
         })
+        return out[-1]
 
     # -- lsh_hash: reads x, eta, mixers once, writes (n, t, 2) keys; per
     #    (point, table, dim) add, mul, floor, convert, 2 mul, 2 add, plus
@@ -1116,7 +1644,9 @@ def check_kernels(last, launches, card: str, x_base, build):
     for k in out:  # lsh_hash_resolve's was timed on its own
         k.setdefault("device_ms", dev_ms.get(k["name"]))
     rt = out[-1]["round_trip"]
-    print(f"bucket_insert_pass at {n} x {t}, {ns} slots: {out[-1]['ms']:.5f}"
+    row23 = out[-1]
+    masked_check(masked, dev, record, card)
+    print(f"bucket_insert_pass at {n} x {t}, {ns} slots: {row23['ms']:.5f}"
           f" ms per call, device {dev_ms['bucket_insert_pass']} ms; one "
           f"batch's stats host to host, standalone sequence vs fused pass "
           f"(old, new, new, old): {rt['old_ms'][0]:.4f}, "
@@ -2311,8 +2841,8 @@ def main(argv=None) -> int:
 
     # 3b. dict path: batched-device over the same stream, held against
     #     the host soa engine's results of phase 3
-    dict_m, dict_last = run_dict_path(args.points, "cuda",
-                                      last.pop("host_stream"))
+    kept = last.pop("host_stream")
+    dict_m, dict_last = run_dict_path(args.points, "cuda", kept)
     dict_m["card"] = card
     dict_m["lsh_hash_at_batch"] = time_dict_hash(dict_last, card)
     kh = dict_m["lsh_hash_at_batch"]
@@ -2328,6 +2858,48 @@ def main(argv=None) -> int:
           f"{kh['bound_ms']:.7f} ms  [{card}]", flush=True)
     print("dict_path " + json.dumps(dict_m), flush=True)
     del dict_last
+    gc.collect()
+
+    # 3c. approx path: the sampled-core engine's device path (one masked
+    #     bucket_insert_pass a batch) against its host twin and phase 3's
+    #     host soa results; 3d. the tiered index (host) at the tier's
+    #     operating point, its back tier held against 3c's host soa run
+    t0 = time.perf_counter()
+    approx_m, masked_last, soa_c = run_approx_path(args.points, "cuda", kept)
+    approx_m["wall_s"] = time.perf_counter() - t0
+    approx_m["card"] = card
+    a, b, c = approx_m["a"], approx_m["b"], approx_m["c"]
+    print(f"approx: {args.points} points at rate {a['sample_rate']} (k_s "
+          f"{a['core_k']}), device path: insert {a['insert_pts_per_s']:.1f}"
+          f" points/s, delete {a['delete_pts_per_s']:.1f} points/s, ARI vs "
+          f"exact {a['ari_vs_exact_after_inserts']:.4f} / "
+          f"{a['ari_vs_exact_after_deletes']:.4f}, masked passes "
+          f"{a['entry_launches']['bucket_insert_pass_masked']} in "
+          f"{a['batches']} batches; rate 1.0 equal to phase 3's soa "
+          f"(insert {b['insert_pts_per_s']:.1f} points/s); operating point "
+          f"(k {c['workload']['k']}, rate {c['sample_rate']}, k_s "
+          f"{c['core_k']}): insert device / host / host soa "
+          f"{c['device']['insert_pts_per_s']:.1f} / "
+          f"{c['host']['insert_pts_per_s']:.1f} / "
+          f"{c['host_soa']['insert_pts_per_s']:.1f} points/s, delete "
+          f"{c['device']['delete_pts_per_s']:.1f} / "
+          f"{c['host']['delete_pts_per_s']:.1f} / "
+          f"{c['host_soa']['delete_pts_per_s']:.1f} points/s, ARI vs soa "
+          f"{c['ari_final_window_vs_soa']:.4f}; phase "
+          f"{approx_m['wall_s']:.1f} s  [{card}]", flush=True)
+    print("approx_path " + json.dumps(approx_m), flush=True)
+    t0 = time.perf_counter()
+    tier = run_tiered_path(soa_c)
+    tier["wall_s"] = time.perf_counter() - t0
+    tier["card"] = card
+    print(f"tiered: rate {tier['sample_rate']}: update "
+          f"{tier['update_pts_per_s']:.1f} points/s, labels served "
+          f"{tier['label_pts_per_s']:.1f} points/s, after the barrier "
+          f"divergence ARI {tier['divergence_ari']:.4f}, lag {tier['lag']},"
+          f" escalations {tier['escalations']}; back tier equal to host "
+          f"soa; phase {tier['wall_s']:.1f} s  [{card}]", flush=True)
+    print("tiered_path " + json.dumps(tier), flush=True)
+    del kept, soa_c
     gc.collect()
 
     # 4. baselines path
@@ -2358,7 +2930,11 @@ def main(argv=None) -> int:
         base["launches"]["eps_neighbor_counts"]
     for entry in MAIN_ENTRIES:
         launches[entry] = metrics["entry_launches"][entry]
-    kernels = check_kernels(last, launches, card, x_base, build) + [flash]
+    # the masked route's launches on its own path, phase 3c (a)
+    launches["bucket_insert_pass_masked"] = \
+        approx_m["a"]["entry_launches"]["bucket_insert_pass_masked"]
+    kernels = check_kernels(last, launches, card, x_base, build,
+                            masked_last) + [flash]
     # lsh_hash's second path: batched-device's standalone entry
     row1 = next(k for k in kernels if k["name"] == "lsh_hash")
     row1.update({

@@ -10,7 +10,8 @@
 
 Backends registered so far: the paper's engines ``dynamic`` and
 ``batched`` (host) and ``batched-device`` (one CUDA ``lsh_hash`` call a
-batch), ``soa`` (host), ``soa-device`` (the CUDA kernels), and the
+batch), ``soa`` (host), ``soa-device`` (the CUDA kernels), the sampled
+tier ``approx`` and the tiered index ``tiered`` (host), and the
 host-only baselines ``emz-static``, ``naive`` and ``emz-fixed``.  The
 device backends (``DEVICE_BACKENDS``) run on "cuda" by default;
 ``build_index(cfg, device="cpu")`` runs their plain kernels.  Snapshots
@@ -30,4 +31,9 @@ from .registry import (  # noqa: F401
     unregister_backend,
 )
 from . import backends as _backends  # noqa: F401  (populates the registry)
-from .backends import EulerTourIndex, RecomputeIndex, SoAIndex  # noqa: F401
+from .backends import (  # noqa: F401
+    ApproxIndex,
+    EulerTourIndex,
+    RecomputeIndex,
+    SoAIndex,
+)

@@ -14,6 +14,12 @@ key                engine
                    core on the host (numpy mirror, no kernel)
 ``soa-device``     SoADynamicDBSCAN(use_device=True) — the lsh_hash and
                    bucket kernels on ``device`` ("cuda" by default)
+``approx``         SampledCoreDBSCAN — the sampled-core tier (DBSCAN++
+                   style, ``sample_rate`` / ``approx_seed``) on the host,
+                   as in the reference
+``tiered``         TieredIndex — ``approx`` serves, the host ``soa``
+                   engine verifies on a thread (``repro_torch.tiered``);
+                   host only, no kernel
 ``emz-static``     EMZ recompute-per-query baseline (Esfandiari et al.),
                    host only
 ``naive``          exact Algorithm-1 DBSCAN recompute-per-query
@@ -26,9 +32,11 @@ the clustering runs from scratch on the first ``label``/``labels`` query
 after a mutation (matching the paper's "recompute after each batch"
 protocol when queried once per batch).  A host-only backend refuses any
 device but ``None`` and "cpu"; the device backends are listed in
-:data:`~repro_torch.api.registry.DEVICE_BACKENDS`.  The other backends of
-``repro.api`` (``approx``, ``sharded``, ``tiered``) come with later
-slices of the port.
+:data:`~repro_torch.api.registry.DEVICE_BACKENDS`.  The sampled tier's
+device path is reached as in the reference, through the engine:
+``ApproxIndex(cfg, SampledCoreDBSCAN(..., use_device=True,
+device="cuda"))``.  The one backend of ``repro.api`` still to come is
+``sharded``.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from ..core.approx import SampledCoreDBSCAN
 from ..core.batched import BatchedDynamicDBSCAN
 from ..core.dynamic_dbscan import DynamicDBSCAN, claim_index
 from ..core.fixed_core import EMZFixedCore
@@ -192,6 +201,21 @@ class SoAIndex(ClusterIndex):
             "n_grab_events": self.engine.n_grab_events,
             "n_scan_events": self.engine.n_scan_events,
         }
+
+
+class ApproxIndex(SoAIndex):
+    """Adapter over :class:`~repro_torch.core.approx.SampledCoreDBSCAN` —
+    same protocol surface as :class:`SoAIndex` (it *is* the SoA engine
+    with the density test restricted to a deterministic id-hash sample),
+    plus sampling diagnostics in ``stats()``."""
+
+    native_component_queries = True
+
+    def stats(self):
+        s = super().stats()
+        s["sample_rate"] = self.engine.sample_rate
+        s["n_sampled"] = self.engine.n_sampled()
+        return s
 
 
 class RecomputeIndex(ClusterIndex):
@@ -418,6 +442,27 @@ def _build_soa_device(cfg: ClusterConfig,
         cfg.d, cfg.k, cfg.t, cfg.eps, seed=cfg.seed,
         attach_orphans=cfg.attach_orphans, repair=cfg.repair,
         use_device=True, device=device or "cuda"))
+
+
+@register_backend("approx")
+def _build_approx(cfg: ClusterConfig, device: Optional[str]) -> ClusterIndex:
+    # host-only, as in the reference; the device path is the engine's
+    # use_device=True (see the module docstring)
+    _host_only("approx", device)
+    return ApproxIndex(cfg, SampledCoreDBSCAN(
+        cfg.d, cfg.k, cfg.t, cfg.eps, seed=cfg.seed,
+        attach_orphans=cfg.attach_orphans, repair=cfg.repair,
+        use_device=False, sample_rate=cfg.sample_rate,
+        approx_seed=cfg.approx_seed))
+
+
+@register_backend("tiered")
+def _build_tiered(cfg: ClusterConfig, device: Optional[str]) -> ClusterIndex:
+    # both tiers on the host (approx front, soa back): no kernel
+    _host_only("tiered", device)
+    from ..tiered import TieredIndex  # lazy: repro_torch.tiered imports api
+
+    return TieredIndex(cfg)
 
 
 @register_backend("emz-static")

@@ -57,7 +57,7 @@ class ClusterConfig:
     #                              runs and wire bytes bit-identical.
     sample_rate: float = 1.0     # backend="approx": fraction of points in
     #                              the deterministic core sample (1.0 =
-    #                              exact; the engine comes later)
+    #                              exact)
     approx_seed: int = 0         # backend="approx": seed folded into the
     #                              id-hash sampling predicate
 

@@ -73,8 +73,9 @@ def build_index(cfg: Union[ClusterConfig, str, None] = None, *,
     ``device`` picks where a device backend (:data:`DEVICE_BACKENDS`:
     ``soa-device``, ``batched-device``) runs: "cuda" by default, "cpu"
     for its plain kernels; a host-only backend (``dynamic``, ``batched``,
-    ``soa``, ``emz-static``, ``naive``, ``emz-fixed``) accepts only
-    ``None`` or "cpu" and raises on any other.
+    ``soa``, ``approx``, ``tiered``, ``emz-static``, ``naive``,
+    ``emz-fixed``) accepts only ``None`` or "cpu" and raises on any
+    other.
     """
     if isinstance(cfg, str):
         cfg = ClusterConfig(backend=cfg, **kwargs)

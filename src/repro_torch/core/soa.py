@@ -118,7 +118,7 @@ def _sv_components(n_rows: int, a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 class DeviceInsertPass:
     """An insert batch's bucket statistics on a device, against a device
-    mirror of a host size table.
+    mirror of a host size table (or of two: ``core_table``).
 
     The host table stays the source of truth; the mirror follows it
     through the insert passes, and a caller that changes the host table
@@ -131,16 +131,26 @@ class DeviceInsertPass:
     doubling, so a pass allocates nothing on the device.  On ``"cpu"`` the
     same steps run the plain version on plain tensors (pinned memory needs
     a CUDA build of torch).
+
+    With ``core_table`` (the sampled-core engine) the pass mirrors a
+    second table, the sizes the support runs on, and takes the kernel's
+    masked route: the row mask is staged beside the slots and goes up in
+    the same upload, the launch adds every row into the sizes and the
+    masked rows into the core sizes and gathers every row's support
+    against the latter, and the download is [new sizes | new core sizes |
+    support].  Both mirrors go stale, and are uploaded, together.
     """
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, core_table: bool = False):
         self.device = device
         self._pinned = device.type == "cuda"
         self.sizes = torch.zeros(256, dtype=torch.int32, device=device)
-        self.fresh = True  # mirror == host table (zero past its end)
-        self._slots_h = self._slots_d = self._out_h = self._out_d = None
+        self.core_sizes = (torch.zeros(256, dtype=torch.int32, device=device)
+                           if core_table else None)
+        self.fresh = True  # mirrors == host tables (zero past their end)
+        self._in_h = self._in_d = self._out_h = self._out_d = None
         self.n_passes = 0
-        self.n_size_uploads = 0  # re-uploads of a stale host table
+        self.n_size_uploads = 0  # re-uploads of stale host tables
 
     def mark_stale(self) -> None:
         self.fresh = False
@@ -155,34 +165,67 @@ class DeviceInsertPass:
                                pin_memory=self._pinned)
         return torch.empty(cap, dtype=torch.int32, device=self.device)
 
-    def run(self, slots: np.ndarray, host_sizes: np.ndarray,
-            k: int) -> Tuple[np.ndarray, np.ndarray]:
-        """(B, t) int32 slots and the host table's ``[:ns]`` view ->
-        ``(delta (ns,), support (B,))``; ``host_sizes`` is updated in place
-        to the new sizes, as the mirror is."""
-        B, t = slots.shape
-        ns = len(host_sizes)
-        if ns > self.sizes.numel():
-            # host slots past the mirror's end are zero while it is fresh
+    def _mirror(self, table: torch.Tensor, host: np.ndarray,
+                upload: bool) -> torch.Tensor:
+        """``table`` grown to hold ``len(host)`` entries (zero-extended:
+        host slots past a fresh mirror's end are zero), and loaded from
+        ``host`` when ``upload``."""
+        ns = len(host)
+        if ns > table.numel():
             grown = torch.zeros(1 << (ns - 1).bit_length(),
                                 dtype=torch.int32, device=self.device)
-            grown[:self.sizes.numel()].copy_(self.sizes)
-            self.sizes = grown
-        if not self.fresh:
-            self.sizes[:ns].copy_(torch.from_numpy(host_sizes))
-            self.sizes[ns:].zero_()
+            grown[:table.numel()].copy_(table)
+            table = grown
+        if upload:
+            table[:ns].copy_(torch.from_numpy(host))
+            table[ns:].zero_()
+        return table
+
+    def run(self, slots: np.ndarray, host_sizes: np.ndarray, k: int,
+            host_core_sizes: Optional[np.ndarray] = None,
+            row_mask: Optional[np.ndarray] = None) -> Tuple[np.ndarray, ...]:
+        """(B, t) int32 slots and the host table's ``[:ns]`` view ->
+        ``(delta (ns,), support (B,))``; ``host_sizes`` is updated in place
+        to the new sizes, as the mirror is.  With ``core_table``, also the
+        host core table's ``[:ns]`` view and the (B,) bool row mask ->
+        ``(delta, core delta (ns,), support)``, both host tables updated
+        in place."""
+        B, t = slots.shape
+        ns = len(host_sizes)
+        two = self.core_sizes is not None
+        if two != (host_core_sizes is not None and row_mask is not None):
+            raise ValueError("a two-table pass takes the core table and "
+                             "the row mask; a one-table pass neither")
+        upload = not self.fresh
+        self.sizes = self._mirror(self.sizes, host_sizes, upload)
+        if two:
+            self.core_sizes = self._mirror(self.core_sizes,
+                                           host_core_sizes, upload)
+        if upload:
             self.fresh = True
             self.n_size_uploads += 1
-        m, no = B * t, ns + B
-        self._slots_h = self._grow(self._slots_h, m, True)
-        self._slots_d = self._grow(self._slots_d, m, False)
+        # staged: the slots, then (two tables) the row mask's bytes
+        m = B * t
+        mw = -(-B // 4) if two else 0
+        head = 2 * ns if two else ns
+        no = head + B
+        self._in_h = self._grow(self._in_h, m + mw, True)
+        self._in_d = self._grow(self._in_d, m + mw, False)
         self._out_h = self._grow(self._out_h, no, True)
         self._out_d = self._grow(self._out_d, no, False)
-        self._slots_h.numpy()[:m] = slots.ravel()
-        dslots = self._slots_d[:m].view(B, t)
-        dslots.copy_(self._slots_h[:m].view(B, t), non_blocking=True)
+        staged = self._in_h.numpy()
+        staged[:m] = slots.ravel()
+        if two:
+            staged[m:m + mw].view(np.uint8)[:B] = row_mask
+        self._in_d[:m + mw].copy_(self._in_h[:m + mw], non_blocking=True)
+        dslots = self._in_d[:m].view(B, t)
+        masked = {}
+        if two:
+            masked = {"core_sizes": self.core_sizes[:ns],
+                      "row_mask": self._in_d[m:m + mw].view(
+                          torch.uint8)[:B]}
         dout = ops.bucket_insert_pass(dslots, self.sizes[:ns], k=k,
-                                      out=self._out_d[:no])
+                                      out=self._out_d[:no], **masked)
         self._out_h[:no].copy_(dout, non_blocking=True)
         if self._pinned:
             torch.cuda.current_stream(self.device).synchronize()
@@ -190,16 +233,29 @@ class DeviceInsertPass:
         delta = res[:ns] - host_sizes
         host_sizes[:] = res[:ns]
         self.n_passes += 1
-        return delta, res[ns:].copy()
+        if not two:
+            return delta, res[ns:].copy()
+        core_delta = res[ns:head] - host_core_sizes
+        host_core_sizes[:] = res[ns:head]
+        return delta, core_delta, res[head:].copy()
 
-    def check(self, host_table: np.ndarray, ns: int) -> None:
-        """A fresh mirror equals the host table's ``[:ns]`` and is zero
-        past it."""
+    def check(self, host_table: np.ndarray, ns: int,
+              host_core_table: Optional[np.ndarray] = None) -> None:
+        """Fresh mirrors equal the host tables' ``[:ns]`` and are zero
+        past it (``host_core_table``: the second table, which a two-table
+        pass must be given)."""
+        if (self.core_sizes is None) != (host_core_table is None):
+            raise ValueError("check the mirrors of every table the pass "
+                             "holds")
         if not self.fresh:
             return
-        mirror = self.sizes.cpu().numpy()
-        assert np.array_equal(mirror[:ns], host_table[:ns])
-        assert not mirror[ns:].any()
+        pairs = [(self.sizes, host_table)]
+        if host_core_table is not None:
+            pairs.append((self.core_sizes, host_core_table))
+        for table, host in pairs:
+            mirror = table.cpu().numpy()
+            assert np.array_equal(mirror[:ns], host[:ns])
+            assert not mirror[ns:].any()
 
 
 def directory_cells(entries: Iterable[Tuple[int, bytes, int]]
@@ -1412,8 +1468,7 @@ class SoADynamicDBSCAN:
                     if self._support[r] > 0}
         self._check_counts(rows, ids, core_ids)
         if self.use_device:
-            self._dpass.check(self._bsize, self._n_slots)
-            self._hpass.check(self._dir)
+            self._check_device_mirrors()
         # 3. attachment validity: anchor is a live core sharing a bucket;
         #    unattached non-core points see no core in any bucket (noise)
         for i, r in zip(ids, rows):
@@ -1449,6 +1504,13 @@ class SoADynamicDBSCAN:
             if len(cs) > 1:
                 h0 = comp[self._row[cs[0]]]
                 assert all(comp[self._row[c]] == h0 for c in cs[1:])
+
+    def _check_device_mirrors(self) -> None:
+        """Fresh device mirrors equal the host state they follow: the
+        sizes (the sampled-core subclass adds its sampled sizes) and the
+        bucket directory."""
+        self._dpass.check(self._bsize, self._n_slots)
+        self._hpass.check(self._dir)
 
     def _check_counts(self, rows: np.ndarray, ids: np.ndarray,
                       core_ids: Set[int]) -> None:

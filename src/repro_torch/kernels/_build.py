@@ -46,6 +46,9 @@ SIGNATURES: Dict[str, tuple] = {
     # slots, n, t, sizes (updated in place), nb, k, out, stream: the
     # engine's insert pass, both bucket kernels in one cooperative launch
     "bucket_insert_pass": (_P, _I, _I, _P, _I, _I, _P, _P),
+    # slots, row mask (u8), n, t, sizes, core sizes (both updated in
+    # place), nb, k, out, stream: the sampled-core engine's insert pass
+    "bucket_insert_pass_masked": (_P, _P, _I, _I, _P, _P, _I, _I, _P, _P),
     # x, n, d, thr, scratch, out, then pairwise_dist.plan: whole, kc,
     # n_tiles, pairs, grid, smem bytes; stream
     "eps_neighbor_counts": (_P, _I, _I, _F, _P, _P, _I, _I, _I, _LL, _I,
@@ -59,12 +62,13 @@ SIGNATURES: Dict[str, tuple] = {
                              _I, _I, _F, _P),
 }
 #: entry points that are a route of other kernels, counted under each of
-#: them: one fused insert pass is a launch of both bucket kernels, one
-#: hash-and-resolve pass a launch of ``lsh_hash``
+#: them: one fused insert pass (either route) is a launch of both bucket
+#: kernels, one hash-and-resolve pass a launch of ``lsh_hash``
 ROUTE_OF: Dict[str, Tuple[str, ...]] = {
     "lsh_hash_resolve": ("lsh_hash",),
     "flash_attention_sm90": ("flash_attention",),
     "bucket_insert_pass": ("slot_counts", "bucket_core_stats"),
+    "bucket_insert_pass_masked": ("slot_counts", "bucket_core_stats"),
 }
 #: the kernels, each counted once whichever entry point launched it
 KERNELS = tuple(name for name in SIGNATURES if name not in ROUTE_OF)

@@ -14,7 +14,14 @@
 // is added into the caller's device size table in place, a grid-wide
 // barrier, then every thread copies the new sizes and gathers the
 // support against them, into one packed output [sizes (nb) | support
-// (n)] that a single download returns.
+// (n)] that a single download returns.  The sampled-core engine's insert
+// batch (core.approx) takes the pass's masked route,
+// bucket_insert_pass_masked: a second table, the sampled sizes, gains the
+// histogram of the rows a byte mask selects, in the same atomic loop, and
+// every row's support is gathered against it; the output is [sizes |
+// sampled sizes | support].  The reference runs that batch as three
+// kernel calls (slot_counts of every row, slot_counts of the sampled rows,
+// bucket_core_stats against the sampled sizes).
 //
 // Bound: launch latency.  At the main path's shapes (1000 x 10 slots,
 // 3,756 slots) the insert pass moves ~80 KB (the ids once, the size table
@@ -86,10 +93,18 @@ __global__ void bucket_core_stats_kernel(const int32_t* __restrict__ slots,
   core[p] = c > 0 ? 1 : 0;
 }
 
-// slots (n, t) i32; sizes (nb,) i32, updated in place; out (nb + n,) i32.
+// slots (n, t) i32; sizes (nb,) i32, updated in place.  kMasked = false:
+// out (nb + n,) i32 = [sizes | support against sizes].  kMasked = true:
+// core_sizes (nb,) i32 is updated in place too, from the rows whose mask
+// byte is not 0, and out (2 nb + n,) i32 = [sizes | core sizes | support
+// against core sizes] (the sampled-core engine: every row in the sizes,
+// the sampled rows in the core sizes, every row's support on the latter).
+template <bool kMasked>
 __global__ void bucket_insert_pass_kernel(const int32_t* __restrict__ slots,
+                                          const uint8_t* __restrict__ mask,
                                           int n, int t,
                                           int32_t* __restrict__ sizes,
+                                          int32_t* __restrict__ core_sizes,
                                           int nb, int k,
                                           int32_t* __restrict__ out) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -98,21 +113,68 @@ __global__ void bucket_insert_pass_kernel(const int32_t* __restrict__ slots,
   const long long m = static_cast<long long>(n) * t;
   for (long long i = tid; i < m; i += stride) {
     const int32_t s = slots[i];
-    if (s >= 0 && s < nb) atomicAdd(sizes + s, 1);
+    if (s >= 0 && s < nb) {
+      atomicAdd(sizes + s, 1);
+      if (kMasked && mask[i / t]) atomicAdd(core_sizes + s, 1);
+    }
   }
   cooperative_groups::this_grid().sync();
-  // the sizes were written by this launch: read them through L2 (__ldcg),
-  // never through the non-coherent read-only path
-  for (long long s = tid; s < nb; s += stride) out[s] = __ldcg(sizes + s);
+  // the tables were written by this launch: read them through L2
+  // (__ldcg), never through the non-coherent read-only path
+  const int32_t* gate = kMasked ? core_sizes : sizes;
+  int32_t* support = out + (kMasked ? 2LL * nb : static_cast<long long>(nb));
+  for (long long s = tid; s < nb; s += stride) {
+    out[s] = __ldcg(sizes + s);
+    if (kMasked) out[nb + s] = __ldcg(core_sizes + s);
+  }
   for (long long p = tid; p < n; p += stride) {
     const int32_t* row = slots + p * t;
     int32_t c = 0;
     for (int i = 0; i < t; ++i) {
       const int32_t s = row[i];
-      if (s >= 0 && s < nb && __ldcg(sizes + s) >= k) ++c;
+      if (s >= 0 && s < nb && __ldcg(gate + s) >= k) ++c;
     }
-    out[nb + p] = c;
+    support[p] = c;
   }
+}
+
+// One cooperative launch of bucket_insert_pass_kernel<kMasked>; returns its
+// error code (or cudaGetLastError()).
+template <bool kMasked>
+int launch_insert_pass(const int32_t* slots, const uint8_t* mask, int n,
+                       int t, int32_t* sizes, int32_t* core_sizes, int nb,
+                       int k, int32_t* out, void* stream) {
+  const int threads = 256;
+  // co-resident blocks a device: occupancy x SMs, looked up once a device
+  static int resident[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, bucket_insert_pass_kernel<kMasked>, threads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm * sms <= 0)
+      return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    resident[dev] = per_sm * sms;
+  }
+  const long long work =
+      static_cast<long long>(n) * t > nb ? static_cast<long long>(n) * t : nb;
+  long long want = (work + threads - 1) / threads;
+  if (want < 1) want = 1;
+  const unsigned blocks = static_cast<unsigned>(
+      want < resident[dev] ? want : resident[dev]);
+  void* args[] = {&slots, &mask, &n, &t, &sizes, &core_sizes, &nb, &k, &out};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(bucket_insert_pass_kernel<kMasked>),
+      dim3(blocks), dim3(threads), args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -150,34 +212,19 @@ extern "C" int bucket_core_stats_launch(const int32_t* slots,
 extern "C" int bucket_insert_pass_launch(const int32_t* slots, int n, int t,
                                          int32_t* sizes, int nb, int k,
                                          int32_t* out, void* stream) {
-  const int threads = 256;
-  // co-resident blocks a device: occupancy x SMs, looked up once a device
-  static int resident[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (resident[dev] == 0) {
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, bucket_insert_pass_kernel, threads, 0);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (per_sm * sms <= 0)
-      return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-    resident[dev] = per_sm * sms;
-  }
-  const long long work =
-      static_cast<long long>(n) * t > nb ? static_cast<long long>(n) * t : nb;
-  long long want = (work + threads - 1) / threads;
-  if (want < 1) want = 1;
-  const unsigned blocks = static_cast<unsigned>(
-      want < resident[dev] ? want : resident[dev]);
-  void* args[] = {&slots, &n, &t, &sizes, &nb, &k, &out};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(bucket_insert_pass_kernel), dim3(blocks),
-      dim3(threads), args, 0, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_insert_pass<false>(slots, nullptr, n, t, sizes, nullptr, nb,
+                                   k, out, stream);
+}
+
+// The sampled-core route: slots (n, t) i32, mask (n,) u8, sizes and
+// core_sizes (nb,) i32 on the card -> sizes += the histogram of every
+// row, core_sizes += that of the rows whose mask byte is not 0 (both in
+// place), out (2 nb + n,) = [new sizes | new core sizes | support against
+// the new core sizes, every row].  One cooperative launch; returns its
+// error code (or cudaGetLastError()).
+extern "C" int bucket_insert_pass_masked_launch(
+    const int32_t* slots, const uint8_t* mask, int n, int t, int32_t* sizes,
+    int32_t* core_sizes, int nb, int k, int32_t* out, void* stream) {
+  return launch_insert_pass<true>(slots, mask, n, t, sizes, core_sizes, nb,
+                                  k, out, stream);
 }

@@ -11,9 +11,9 @@ Each kernel counts its launches (:func:`launch_counts`,
 :func:`reset_launch_counts`); calls of the plain version count nothing.
 A kernel with two routes (``flash_attention``: bf16 on the tensor cores,
 f32 on the CUDA cores) counts both under its name, one launch of the
-fused ``bucket_insert_pass`` counts under both bucket kernels, one of
-``lsh_hash_resolve`` under ``lsh_hash``, and :func:`entry_launch_counts`
-says which C entry point ran.
+fused ``bucket_insert_pass`` (either route) counts under both bucket
+kernels, one of ``lsh_hash_resolve`` under ``lsh_hash``, and
+:func:`entry_launch_counts` says which C entry point ran.
 """
 
 from __future__ import annotations
@@ -33,7 +33,8 @@ from . import ref as _ref
 #: entry point in ``csrc/*.cu`` (``flash_attention`` has a second one,
 #: ``flash_attention_sm90_launch``, for bf16; ``lsh_hash`` another,
 #: ``lsh_hash_resolve_launch``, for the engine's hash pass; the two bucket
-#: kernels share ``bucket_insert_pass_launch``)
+#: kernels share ``bucket_insert_pass_launch`` and its masked route,
+#: ``bucket_insert_pass_masked_launch``)
 KERNELS = _build.KERNELS
 
 
@@ -76,15 +77,21 @@ def bucket_core_stats(slots, sizes, *, k: int, impl: Optional[str] = None):
     return _ref.bucket_core_stats(slots, sizes, k)
 
 
-def bucket_insert_pass(slots, sizes, *, k: int, out=None,
-                       impl: Optional[str] = None):
+def bucket_insert_pass(slots, sizes, *, k: int, out=None, core_sizes=None,
+                       row_mask=None, impl: Optional[str] = None):
     """An insert batch's stats: ``sizes`` (nb,) += the histogram of
     ``slots`` (n, t) IN PLACE; returns [new sizes | support] (nb + n,),
-    written into ``out`` when given.  One launch of both bucket kernels on
-    the card, counted under each."""
+    written into ``out`` when given.  With ``core_sizes`` (nb,) and
+    ``row_mask`` (n,), the masked route: ``core_sizes`` += the histogram
+    of the masked rows IN PLACE too, the support runs on it, and the
+    result is [new sizes | new core sizes | support] (2 nb + n,).  One
+    launch of both bucket kernels on the card, counted under each."""
     if _on_card(slots, impl):
-        return _bo.bucket_insert_pass(slots, sizes, k=k, out=out)
-    return _ref.bucket_insert_pass(slots, sizes, k, out)
+        return _bo.bucket_insert_pass(slots, sizes, k=k, out=out,
+                                      core_sizes=core_sizes,
+                                      row_mask=row_mask)
+    return _ref.bucket_insert_pass(slots, sizes, k, out, core_sizes,
+                                   row_mask)
 
 
 def eps_neighbor_counts(x, *, eps: float, impl: Optional[str] = None):
@@ -114,7 +121,8 @@ def entry_launch_counts() -> Dict[str, int]:
     :func:`reset_launch_counts`: ``flash_attention_sm90`` is the bf16
     tensor-core route, ``flash_attention`` the f32 one;
     ``bucket_insert_pass`` is the fused route of ``slot_counts`` and
-    ``bucket_core_stats``, which also have standalone entries;
+    ``bucket_core_stats``, which also have standalone entries, and
+    ``bucket_insert_pass_masked`` its masked two-table route;
     ``lsh_hash_resolve`` is ``lsh_hash`` with the directory probes."""
     return dict(_build.ENTRY_LAUNCHES)
 

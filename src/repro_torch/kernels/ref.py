@@ -215,7 +215,10 @@ def bucket_core_stats(slots: torch.Tensor, sizes: torch.Tensor, k: int):
 
 
 def bucket_insert_pass(slots: torch.Tensor, sizes: torch.Tensor, k: int,
-                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       out: Optional[torch.Tensor] = None,
+                       core_sizes: Optional[torch.Tensor] = None,
+                       row_mask: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """An insert batch's bucket statistics against a size table.
 
     slots: (n, t) int32 bucket-slot ids of the batch
@@ -224,15 +227,31 @@ def bucket_insert_pass(slots: torch.Tensor, sizes: torch.Tensor, k: int,
     returns ``out[:nb + n]`` (allocated when ``out`` is None), int32:
     the new sizes, then each point's support against them
     (``bucket_core_stats(slots, new sizes, k)[0]``).  Ids outside
-    ``[0, nb)`` contribute nothing to either."""
+    ``[0, nb)`` contribute nothing to either.
+
+    With ``core_sizes`` (nb,) int32 and ``row_mask`` (n,) bool or uint8
+    (both or neither) the support runs on the second table instead, the
+    sampled-core engine's: ``core_sizes += slot_counts(slots[row_mask])``
+    (the masked rows only, updated IN PLACE), and every row's support is
+    counted against the new ``core_sizes``; returns ``out[:2 nb + n]`` =
+    [new sizes | new core sizes | support]."""
     nb, n = sizes.shape[0], slots.shape[0]
+    if (core_sizes is None) != (row_mask is None):
+        raise ValueError("bucket_insert_pass: core_sizes and row_mask "
+                         "come together")
     sizes += slot_counts(slots, nb)
-    supp, _core = bucket_core_stats(slots, sizes, k)
+    gate, head = sizes, nb
+    if core_sizes is not None:
+        core_sizes += slot_counts(slots[row_mask.to(torch.bool)], nb)
+        gate, head = core_sizes, 2 * nb
+    supp, _core = bucket_core_stats(slots, gate, k)
     if out is None:
-        out = torch.empty(nb + n, dtype=torch.int32, device=sizes.device)
-    out = out[:nb + n]
+        out = torch.empty(head + n, dtype=torch.int32, device=sizes.device)
+    out = out[:head + n]
     out[:nb] = sizes
-    out[nb:] = supp
+    if core_sizes is not None:
+        out[nb:head] = core_sizes
+    out[head:] = supp
     return out
 
 

@@ -3,7 +3,8 @@
 Mirror of ``repro.launch.serve``, plus ``--device`` (default ``cuda``)
 and ``--cluster-backend`` (the engine's keyword; default, as there,
 ``batched``, which runs on the host whatever ``--device`` is; a device
-backend, ``batched-device`` or ``soa-device``, runs on ``--device``).
+backend, ``batched-device`` or ``soa-device``, runs on ``--device``;
+``--tier RATE`` serves from the tiered index, on the host).
 The default arch is a dense one until the SSM family is ported (the
 reference's is ``mamba2-780m``); an arch of an unported family raises.
 
@@ -49,7 +50,10 @@ def main(argv=None):
     ap.add_argument("--cluster-replicas", type=int, default=0,
                     help="replicas per clustering shard")
     ap.add_argument("--tier", type=float, default=None, metavar="RATE",
-                    help="tiered request clustering at this sample_rate")
+                    help="tiered request clustering (repro_torch.tiered): "
+                         "serve labels from a sampled-core front tier at "
+                         "this sample_rate while the exact tier verifies "
+                         "on a thread (host)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)

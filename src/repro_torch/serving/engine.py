@@ -18,9 +18,10 @@ The decode step is a plain call under ``torch.inference_mode()`` (the
 reference jits it).  ``cluster_backend`` keeps the reference's default,
 ``"batched"`` (host); the engine hands its device only to a device
 backend (``repro_torch.api.DEVICE_BACKENDS``, e.g. ``batched-device``,
-``soa-device``) and ``None`` to a host backend.  A backend the port does
-not have yet raises the registry's ``KeyError`` rather than being
-replaced by another.
+``soa-device``) and ``None`` to a host backend, ``tiered``
+(``cluster_tier``) among them.  A backend the port does not have yet
+raises the registry's ``KeyError`` rather than being replaced by
+another.
 """
 
 from __future__ import annotations
@@ -79,9 +80,14 @@ class ServingEngine:
         self.slot_pos = np.zeros(batch, dtype=np.int64)
         self.queue: List[Request] = []
         self.done: Dict[int, Request] = {}
-        # the reference's sharding, transport, replica and tier knobs
-        # reach the same config fields; the backends they select
-        # ("sharded", "tiered") come with later slices and raise here
+        # cluster_tier=<rate> switches to tiered serving
+        # (repro_torch.tiered): a sampled-core front tier at that
+        # sample_rate labels requests at once while the exact tier
+        # verifies on a thread; both run on the host, so the index gets
+        # no device, and close() stops its verifier.  The sharding,
+        # transport and replica knobs reach the reference's config
+        # fields; the backend they select ("sharded") comes with a later
+        # slice and raises here
         if cluster_tier is not None:
             cluster_backend = "tiered"
         self.clusterer = None
@@ -212,6 +218,7 @@ class ServingEngine:
         return self.done
 
     def close(self) -> None:
-        """Release the clusterer's external resources."""
+        """Release the clusterer's external resources (the tiered index's
+        verifier thread)."""
         if self.clusterer is not None:
             self.clusterer.close()

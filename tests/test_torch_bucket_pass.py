@@ -7,7 +7,9 @@ device-resident stats pass against the JAX package.
   ``slot_counts``, the add on the host, then ``bucket_core_stats`` on the
   new sizes.  Two successive calls on one table, so the carried sizes are
   checked too; ids outside the table (on the range where the TPU kernels
-  drop them, see ``tests/test_torch_kernels.py``) included.
+  drop them, see ``tests/test_torch_kernels.py``) included.  The masked
+  two-table route (the sampled-core engine's) against the reference
+  engine's three calls, with random, all-false and all-true masks.
 * ``SoADynamicDBSCAN(use_device=True, device="cpu")``, whose insert
   passes keep a mirror of the size table on the device, beside the
   reference's ``use_device="interpret"`` engine and the port's host
@@ -77,6 +79,89 @@ def test_plain_pass_matches_jax(n, t, nb, k):
         np.testing.assert_array_equal(sizes.numpy(), want_sizes)
 
 
+def _jax_masked_pass(slots, mask, sizes, core_sizes, k, impl):
+    """The reference sampled-core engine's three calls
+    (``repro/core/approx.py``, ``_batch_stats``): histogram of every row
+    into ``sizes``, histogram of the masked rows into ``core_sizes``
+    (nothing when no row is masked: the reference's Pallas path cannot
+    take a block of zero rows, and the sum of nothing is zero), then the
+    support of every row against the new ``core_sizes``."""
+    n_slots = len(sizes)
+    sizes += np.asarray(jax_ops.slot_counts(
+        jnp.asarray(slots), n_slots=n_slots, impl=impl))
+    rows = np.nonzero(mask)[0]
+    if len(rows):
+        core_sizes += np.asarray(jax_ops.slot_counts(
+            jnp.asarray(slots[rows]), n_slots=n_slots, impl=impl))
+    supp, _core = jax_ops.bucket_core_stats(
+        jnp.asarray(slots), jnp.asarray(core_sizes), k=k, impl=impl)
+    return np.concatenate([sizes, core_sizes, np.asarray(supp)])
+
+
+MASKS = ["random", "none", "all"]
+
+
+def _mask(kind, n, seed):
+    if kind == "none":
+        return np.zeros(n, bool)
+    if kind == "all":
+        return np.ones(n, bool)
+    return np.random.default_rng(seed).random(n) < 0.3
+
+
+@pytest.mark.parametrize("impl", ["pallas_interpret", "ref"])
+@pytest.mark.parametrize("kind", MASKS)
+@pytest.mark.parametrize("n,t,nb", BUCKET_SHAPES)
+def test_masked_plain_pass_matches_jax(n, t, nb, kind, impl):
+    """The masked two-table route of the plain pass against the
+    reference's three calls, twice in a row on one pair of tables.  In
+    interpret mode the ids run over [-pad, nb + 9), where the Pallas
+    kernels drop an out-of-range id; ``repro.kernels.ref`` wraps a
+    negative id like numpy indexing (ROADMAP, Queue 3), so against it
+    the ids stay in range."""
+    rng = np.random.default_rng(n * 5 + nb)
+    k = int(rng.integers(1, 5))
+    sizes_np = rng.integers(0, 6, nb).astype(np.int32)
+    core_np = (sizes_np * rng.random(nb)).astype(np.int32)
+    sizes, core = torch.from_numpy(sizes_np.copy()), \
+        torch.from_numpy(core_np.copy())
+    for call in range(2):  # the second call carries the first's tables
+        slots = (_slots(n, t, nb, n * 11 + nb + call) if impl != "ref"
+                 else np.random.default_rng(call).integers(
+                     0, nb, (n, t)).astype(np.int32))
+        mask = _mask(kind, n, n + call)
+        want = _jax_masked_pass(slots, mask, sizes_np, core_np, k, impl)
+        for mdt in (torch.bool, torch.uint8):
+            a, c = sizes.clone(), core.clone()
+            got = ops.bucket_insert_pass(
+                torch.from_numpy(slots), a, k=k, core_sizes=c,
+                row_mask=torch.from_numpy(mask).to(mdt))
+            assert got.dtype == torch.int32 and got.shape == (2 * nb + n,)
+            np.testing.assert_array_equal(got.numpy(), want)
+            np.testing.assert_array_equal(a.numpy(), sizes_np)
+            np.testing.assert_array_equal(c.numpy(), core_np)
+        sizes, core = a, c
+
+
+def test_masked_pass_with_every_row_equals_one_table_pass():
+    """An all-true mask on a core table equal to the sizes: both tables
+    come out as the one-table pass's sizes, with its support."""
+    slots = torch.from_numpy(_slots(90, 6, 40, 3))
+    table = torch.arange(40, dtype=torch.int32) % 7
+    a, b, c = table.clone(), table.clone(), table.clone()
+    one = ops.bucket_insert_pass(slots, a, k=5)
+    two = ops.bucket_insert_pass(slots, b, k=5, core_sizes=c,
+                                 row_mask=torch.ones(90, dtype=torch.bool))
+    assert torch.equal(two[:40], one[:40]) and torch.equal(two[40:80],
+                                                           one[:40])
+    assert torch.equal(two[80:], one[40:])
+    with pytest.raises(ValueError, match="come together"):
+        ops.bucket_insert_pass(slots, a, k=5, core_sizes=c)
+    with pytest.raises(ValueError, match="come together"):
+        ops.bucket_insert_pass(slots, a, k=5,
+                               row_mask=torch.ones(90, dtype=torch.bool))
+
+
 def test_pass_writes_into_a_larger_out_buffer():
     slots = torch.from_numpy(_slots(40, 4, 9, 1))
     a, b = torch.arange(9, dtype=torch.int32), torch.arange(9,
@@ -98,6 +183,15 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         bucket_ops.bucket_insert_pass(s, torch.zeros(3, dtype=torch.int32),
                                       k=1)
+
+
+def test_cuda_wrapper_rejects_a_cpu_masked_pass():
+    s = torch.zeros((4, 2), dtype=torch.int32)
+    z = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bucket_ops.bucket_insert_pass(s, z, k=1, core_sizes=z.clone(),
+                                      row_mask=torch.ones(4,
+                                                          dtype=torch.bool))
 
 
 def _assert_same_state(a, b):

@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
 version, the ``soa-device`` engine on ``cuda`` against the host ``soa``
-engine, ``batched-device`` on ``cuda`` against ``batched-device`` on the
-CPU, and the dense LM's prefill (through the flash-attention kernel)
+engine, the sampled-core engine's device path on ``cuda`` against its
+host twin, ``batched-device`` on ``cuda`` against ``batched-device`` on
+the CPU, and the dense LM's prefill (through the flash-attention kernel)
 against its decode.  Tolerance zero for the integer kernels (for
 ``eps_neighbor_counts`` because the kernel and its plain version round
 every f32 product and sum in the same order).  ``flash_attention`` sums
@@ -165,6 +166,63 @@ def test_bucket_insert_pass_matches_plain(cuda, n, t, nb):
     assert torch.equal(c, a.cpu())
 
 
+@pytest.mark.parametrize("kind", ["random", "none", "all"])
+@pytest.mark.parametrize("n,t,nb", BUCKET_SHAPES + [(1000, 10, 3756)])
+def test_bucket_insert_pass_masked_matches_plain(cuda, n, t, nb, kind):
+    """The masked two-table route against its plain version, twice in a
+    row on one pair of tables, ids out of range on both sides, random,
+    all-false and all-true masks, as bool and as uint8.  One launch a
+    call, counted under both bucket kernels and under its own entry."""
+    rng = np.random.default_rng(n * 7 + nb)
+    table = torch.from_numpy(rng.integers(0, 12, nb).astype(np.int32))
+    core = torch.from_numpy((table.numpy() // 2).astype(np.int32))
+    a, b = table.to(cuda), table.to(cuda)
+    ca, cb = core.to(cuda), core.to(cuda)
+    out = torch.full((2 * nb + n + 5,), -1, dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    for call in range(2):
+        slots = torch.from_numpy(_slots(n, t, nb, n + nb + call)).to(cuda)
+        mask = {"random": rng.random(n) < 0.3, "none": np.zeros(n, bool),
+                "all": np.ones(n, bool)}[kind]
+        for k, mdt in ((1, torch.bool), (9, torch.uint8)):
+            m = torch.from_numpy(mask).to(mdt).to(cuda)
+            got = ops.bucket_insert_pass(slots, a, k=k, core_sizes=ca,
+                                         row_mask=m, out=out)
+            want = ops.bucket_insert_pass(slots, b, k=k, core_sizes=cb,
+                                          row_mask=m, impl="ref")
+            assert got.shape == (2 * nb + n,)
+            assert torch.equal(got, want)
+            assert torch.equal(a, b) and torch.equal(ca, cb)
+    torch.cuda.synchronize()
+    assert int(out[2 * nb + n:].min()) == -1  # nothing written past it
+    counts, entries = ops.launch_counts(), ops.entry_launch_counts()
+    assert counts["slot_counts"] == counts["bucket_core_stats"] == 4
+    assert entries["bucket_insert_pass_masked"] == 4
+    assert entries["bucket_insert_pass"] == 0
+    assert entries["slot_counts"] == entries["bucket_core_stats"] == 0
+
+
+def test_bucket_insert_pass_masked_rejects_bad_arguments(cuda):
+    s = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    z = torch.zeros(3, dtype=torch.int32, device=cuda)
+    m = torch.ones(4, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="come together"):
+        ops.bucket_insert_pass(s, z, k=1, core_sizes=z.clone())
+    with pytest.raises(ValueError, match="shape"):
+        ops.bucket_insert_pass(s, z, k=1, core_sizes=z.clone(),
+                               row_mask=m[:3])
+    with pytest.raises(ValueError, match="shape"):
+        ops.bucket_insert_pass(s, z, k=1, core_sizes=z[:2].clone(),
+                               row_mask=m)
+    with pytest.raises(TypeError):
+        ops.bucket_insert_pass(s, z, k=1, core_sizes=z.clone(),
+                               row_mask=m.to(torch.int32))
+    with pytest.raises(ValueError, match="at least 10"):
+        ops.bucket_insert_pass(s, z, k=1, core_sizes=z.clone(), row_mask=m,
+                               out=torch.zeros(9, dtype=torch.int32,
+                                               device=cuda))
+
+
 @pytest.mark.parametrize("d", [1, 3, 4, 10, 16, 20, 54, 64, 96])
 @pytest.mark.parametrize("n", [1, 63, 64, 127, 128, 129, 255, 256, 257,
                                1000, 4097, 8193, 20_001])
@@ -285,6 +343,72 @@ def test_soa_device_on_cuda_matches_host_soa(cuda, orphans):
     assert entries["slot_counts"] == entries["bucket_core_stats"] == 0
     assert entries["lsh_hash"] == 0
     dev.check_invariants()
+    for key, val in dev.snapshot()["state"].items():
+        np.testing.assert_array_equal(val, host.snapshot()["state"][key])
+
+
+@pytest.mark.parametrize("rate", [0.3, 1.0])
+def test_approx_device_on_cuda_matches_host(cuda, rate):
+    """The sampled-core engine's device path on the card (one masked
+    ``bucket_insert_pass`` launch an insert batch, against mirrors of
+    both size tables) beside its host twin: inserts, batch and single
+    deletes and a restore, labels, deltas, state and both tables equal
+    at every step, the mirrors equal to the host tables whenever they
+    are fresh."""
+    from repro_torch.api import ApproxIndex
+    from repro_torch.core.approx import SampledCoreDBSCAN
+
+    X, _ = blobs(n=3000, d=10, n_clusters=10, seed=3)
+    cfg = ClusterConfig(d=10, k=10, t=10, eps=0.75, seed=3,
+                        backend="approx", sample_rate=rate)
+
+    def engine(use_device):
+        return SampledCoreDBSCAN(10, 10, 10, 0.75, seed=3,
+                                 sample_rate=rate, use_device=use_device,
+                                 device="cuda")
+    dev = ApproxIndex(cfg, engine(True))
+    host = ApproxIndex(cfg, engine(False))
+    assert dev.engine._dpass.core_sizes.device.type == "cuda"
+    dev.drain_deltas()
+    host.drain_deltas()
+    ops.reset_launch_counts()
+    n_inserts = 0
+    for b in range(0, len(X), 250):
+        assert dev.insert_batch(X[b:b + 250]) == host.insert_batch(
+            X[b:b + 250])
+        n_inserts += 1
+        assert sorted(dev.drain_deltas()) == sorted(host.drain_deltas())
+        if b % 1000 == 750:
+            victims = dev.ids()[::6]
+            dev.delete_batch(victims)
+            host.delete_batch(victims)
+            assert sorted(dev.drain_deltas()) == sorted(host.drain_deltas())
+        if b % 1000 == 250:
+            for victim in dev.ids()[1::97]:
+                dev.delete(victim)
+                host.delete(victim)
+            assert sorted(dev.drain_deltas()) == sorted(host.drain_deltas())
+        if b == 1500:
+            # a restore numbers the slots anew: restore both
+            snap = host.snapshot()
+            dev = ApproxIndex(cfg, engine(True))
+            dev.restore(snap)
+            host = ApproxIndex(cfg, engine(False))
+            host.restore(snap)
+            dev.drain_deltas()
+            host.drain_deltas()
+        assert dev.labels() == host.labels()
+        ns = host.engine._n_slots
+        np.testing.assert_array_equal(dev.engine._bsize[:ns],
+                                      host.engine._bsize[:ns])
+        np.testing.assert_array_equal(dev.engine._ssize[:ns],
+                                      host.engine._ssize[:ns])
+        dev.check_invariants()  # fresh mirrors equal both host tables
+    entries = ops.entry_launch_counts()
+    assert entries["bucket_insert_pass_masked"] == n_inserts
+    assert entries["lsh_hash_resolve"] == n_inserts
+    assert entries["bucket_insert_pass"] == entries["slot_counts"] == \
+        entries["bucket_core_stats"] == entries["lsh_hash"] == 0
     for key, val in dev.snapshot()["state"].items():
         np.testing.assert_array_equal(val, host.snapshot()["state"][key])
 

@@ -55,11 +55,13 @@ def test_plan_refuses_what_no_route_takes():
 
 def test_routes_are_entry_points_counted_under_one_kernel():
     assert set(_build.SIGNATURES) == set(ops.KERNELS) | {
-        "lsh_hash_resolve", "flash_attention_sm90", "bucket_insert_pass"}
+        "lsh_hash_resolve", "flash_attention_sm90", "bucket_insert_pass",
+        "bucket_insert_pass_masked"}
     assert _build.ROUTE_OF == {
         "lsh_hash_resolve": ("lsh_hash",),
         "flash_attention_sm90": ("flash_attention",),
-        "bucket_insert_pass": ("slot_counts", "bucket_core_stats")}
+        "bucket_insert_pass": ("slot_counts", "bucket_core_stats"),
+        "bucket_insert_pass_masked": ("slot_counts", "bucket_core_stats")}
     for dtype in (torch.float32, torch.bfloat16):
         assert fa.plan(dtype, 64).entry in _build.SIGNATURES
     assert set(ops.launch_counts()) == set(ops.KERNELS)

@@ -259,3 +259,64 @@ def test_serve_cli_cluster_default_matches_jax(capsys):
     assert {r: d.cluster for r, d in done.items()} == \
         {r: d.cluster for r, d in jdone.items()}
     assert all(d.cluster is not None for d in done.values())
+
+
+def test_tiered_serving_runs_on_the_host_and_closes():
+    """``cluster_tier=0.2`` builds the tiered index (``approx`` front,
+    ``soa`` back, both host) and hands it no device, on a card too; every
+    request is labelled, the tokens equal the JAX engine's with the same
+    tier (a request's tokens do not depend on its batch), the ``tiered.*``
+    gauges reach the clusterer's obs, and ``close()`` stops the verifier
+    thread."""
+    from repro_torch.serving import engine as serving_engine
+    from repro_torch.tiered import TieredIndex
+
+    jm, jp, tm, tp = _models("granite-20b")
+    reqs = _requests(14, tm.cfg.vocab_size, seed=2, embed=True)
+    kw = dict(batch=4, kv_len=32, cluster_requests=True, cluster_tier=0.2)
+    jdone = _serve(JEngine, JRequest, jm, jp, reqs, **kw)
+    eng = ServingEngine(tm, tp, obs=make_obs(True), **kw)
+    try:
+        assert isinstance(eng.clusterer, TieredIndex)
+        assert eng.clusterer.cfg.sample_rate == 0.2
+        assert eng.clusterer.verifier.is_alive()
+        for rid, prompt, max_new, emb in reqs:
+            eng.submit(Request(rid=rid, prompt=prompt,
+                               max_new_tokens=max_new, embedding=emb))
+        done = eng.run_until_drained(max_steps=500)
+        assert sorted(done) == list(range(14))
+        assert all(d.cluster is not None for d in done.values())
+        for rid in jdone:
+            assert done[rid].out_tokens == jdone[rid].out_tokens, rid
+        eng.clusterer.exact_labels()  # barrier
+        m = eng.clusterer.obs.snapshot()["metrics"]
+        assert m["tiered.lag"]["value"] == 0
+        assert 0.0 <= m["tiered.divergence_ari"]["value"] <= 1.0
+    finally:
+        eng.close()
+    assert not eng.clusterer.verifier.is_alive()
+
+    seen = {}
+
+    def recording_build(cfg, device=None):
+        seen[cfg.backend] = device
+        return object()
+
+    on_card = types.SimpleNamespace(device=torch.device("cuda"),
+                                    decode_init=lambda b, kv_len: None)
+    real = serving_engine.build_index
+    serving_engine.build_index = recording_build
+    try:
+        ServingEngine(on_card, None, batch=2, kv_len=16,
+                      cluster_requests=True, cluster_tier=0.2)
+    finally:
+        serving_engine.build_index = real
+    assert seen == {"tiered": None}
+
+
+def test_serve_cli_tier_runs_on_cpu(capsys):
+    done = serve.main(["--smoke", "--device", "cpu", "--requests", "6",
+                       "--max-new", "3", "--cluster", "--tier", "0.2"])
+    assert sorted(done) == list(range(6))
+    assert all(d.cluster is not None for d in done.values())
+    assert "served 6 requests, 18 tokens" in capsys.readouterr().out

@@ -209,3 +209,40 @@ def test_ptxas_names_bool_template_kernels():
             "spill_stores": 0, "spill_loads": 0, "registers": 128},
         "eps_neighbor_counts_kernel<false>": {
             "spill_stores": 8, "spill_loads": 8, "registers": 128}}
+
+
+def test_approx_and_tiered_paths_run_on_cpu(monkeypatch):
+    """Phases 3c and 3d on the CPU at a small size (the tier's operating
+    point cut to quality_speed's SMOKE workload): (a) the device path at
+    rate 0.5 beside its host twin, (b) at rate 1.0 against phase 3's host
+    soa results, (c) at rate 0.1; the tiered index's back tier equal to
+    (c)'s host soa labels; no kernel launches on the CPU."""
+    monkeypatch.setattr(chip_smoke, "TIER_POINT", dict(
+        n_stream=3000, window=2000, batch=500, d=8, n_clusters=4,
+        cluster_std=0.4, k=32, t=8, eps=0.5, data_seed=3))
+    _metrics, last = chip_smoke.run_main_path(3000, "cpu")
+    kept = last.pop("host_stream")
+    out, masked, soa_labels = chip_smoke.run_approx_path(3000, "cpu", kept)
+    a, b, c = out["a"], out["b"], out["c"]
+    assert a["core_k"] == 5 and a["stats_passes"] == 3
+    assert a["deltas_equal_host"] and a["restore_labels_equal"]
+    assert 0.0 <= a["ari_vs_exact_after_deletes"] <= 1.0
+    assert b["labels_equal_phase3_soa"] and b["core_k"] == 10
+    assert c["core_k"] == 3 and c["deleted"] == 1000 and c["batches"] == 6
+    assert not any(a["launches"].values())
+    ns = len(masked["sizes_before"])
+    assert masked["slots"].shape == (1000, 10) and masked["k"] == 5
+    assert len(masked["support"]) == 1000 and len(masked["core"]) == ns
+    tier = chip_smoke.run_tiered_path(soa_labels)
+    assert tier["back_equal_host_soa"] and tier["lag"] == 0
+    assert tier["labels_served"] == 2000
+    assert 0.0 <= tier["divergence_ari"] <= 1.0
+
+
+def test_approx_path_refuses_a_different_stream():
+    """The rate-1.0 run is held against phase 3's kept results: a stream
+    of another length fails."""
+    _metrics, last = chip_smoke.run_main_path(2000, "cpu")
+    kept = last.pop("host_stream")
+    with pytest.raises(AssertionError, match="insert batches"):
+        chip_smoke.run_approx_path(3000, "cpu", kept)
