@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--points N]
 
-Phases (1-3, 3b-3d, 4-7), each of which raises on failure (exit code
+Phases (1-3, 3b-3e, 4-7), each of which raises on failure (exit code
 != 0):
 
 1. device  — print the card (``nvidia-smi`` name and power limit, torch's
@@ -81,6 +81,50 @@ Phases (1-3, 3b-3d, 4-7), each of which raises on failure (exit code
              ``tiered.divergence_ari`` and ``tiered.lag`` gauges and the
              escalations; the back tier's labels must equal (c)'s host
              ``soa`` run; ``close()`` must stop the verifier thread.
+3e. sharded — ``backend="sharded"`` over ``soa-device`` shards on the
+             card.  (a) Four shards on a pool of four threads (local
+             transport, ``obs=True``) over phase 3's stream (deltas
+             drained every batch, 32 sampled ``label()`` calls a batch,
+             ``labels()`` every 10th), then ``rebalance(
+             propose_rebalance(ix))``, phase 3's victims deleted in
+             batches of 1000, snapshot + ``restore_index`` on the card:
+             every batch's sorted deltas, the labels at every 10th batch,
+             after the rebalance, at both ends and after the restore must
+             equal the same config over host ``soa`` shards, with
+             ``check_invariants()`` on both; the live ids, noise set and
+             cores must equal phase 3's host ``soa`` results, the
+             partition's ARI against them and the points outside the best
+             bijection are reported; each shard launches
+             ``lsh_hash_resolve`` and ``bucket_insert_pass`` once per
+             non-empty sub-batch, no standalone entry.  At the last
+             insert batch the fullest shard's two passes keep the inputs
+             their kernels launched on (points, pending directory
+             updates, directory mirror; slots, size table): each kernel
+             on copies of them must equal its plain version bit for bit
+             and what the shard computed, and is timed beside it.  Prints
+             shard sizes around the rebalance, throughput, the
+             coordinator's hash pass (span ``coord.route_and_key``)
+             against the fan-out (span ``coord.fanout``), a batch,
+             ``stats()`` and the top rows of ``python -m repro_torch.obs
+             report`` over the written trace; then the first 100 insert
+             batches of the stream timed with the fan-out serial
+             (``workers=0``) and on the pool, in turns (serial, pool,
+             pool, serial).  (b) The same config with
+             ``transport="process"``: four workers spawned with
+             ``--device cuda`` over the first 50 insert batches, each
+             batch's deltas and the labels after them equal to (a)'s host
+             run, every worker holding a GPU device file open, a snapshot
+             restored on the local transport equal; round trips and
+             bytes.  (c) ``transport="tcp"``, two shards of a primary and
+             a replica each, at Table 2's scale (blobs 20,000 x 10,
+             batches of 1000, 25% deleted): shard 0's primary is killed
+             after batch 10 (``benchmarks/serving_mix.py``'s chaos); no
+             request may fail, the labels at every 5th batch and at the
+             end must equal an in-process host oracle, and after
+             ``check_health()`` the lane is back at two members on the
+             card with replicas byte-equal to their primaries; the
+             ``failover.*`` counters are printed.  Every index is closed
+             in a ``finally``; a worker alive after ``close()`` fails.
 4. baselines — the paper's Table-2 streaming protocol at its default
              scale (``benchmarks/table2.py``, scale 0.1): blobs n=20,000,
              d=10, 10 clusters, k=10, t=10, eps=0.75, batches of 1000
@@ -164,7 +208,8 @@ The line before the last is one JSON object with a ``kernels`` list (all
 five kernels and the ``lsh_hash_resolve`` and fused
 ``bucket_insert_pass`` routes, the latter's masked route with its
 launches on the approx path; ``lsh_hash``'s entry also gives its
-launches on the dict path); the last line is ``{"ok": true,
+launches on the dict path, and the two routes theirs on the sharded
+path, 3e (a), with their check at a shard's sub-batch); the last line is ``{"ok": true,
 "device": {...}}``.
 ``--points`` cuts the main, dict and approx streams only (the cut is
 printed);
@@ -237,6 +282,17 @@ TIER_POINT = dict(n_stream=36000, window=24000, batch=1000, d=8,
 # blobs, with benchmarks/common.py stream_eval's protocol
 BASELINES = ("dynamic", "naive", "emz-static", "emz-fixed")
 BASELINE_POINTS = 20_000
+# the sharded path (phase 3e): four soa-device shards on a pool of four
+# threads over phase 3's stream (a), its first 100 insert batches timed
+# with a serial and a pooled fan-out in turns; the same config as four
+# worker processes over its first 50 insert batches (b); two shards of a
+# primary and a replica each over TCP at Table 2's scale, shard 0's
+# primary killed after batch 10 as benchmarks/serving_mix.py's chaos
+# does (c)
+SHARDS = 4
+PROCESS_BATCHES = 50
+FANOUT_BATCHES = 100
+FAILOVER_KILL_AFTER = 10
 # shapes of the eps_neighbor_counts correctness sweep: n on the edges of
 # the kernel's 128-point tiles, 8193 (blocks start inside a row of tile
 # pairs and cross to the next on 132 SMs), d up to the whole-d limit (64)
@@ -521,6 +577,8 @@ def run_main_path(n_points: int, device: str):
     if labels_ins != host.labels():
         raise AssertionError("labels() differ after the inserts")
     kept["labels_after_inserts"] = label_array(labels_ins)
+    kept["cores_after_inserts"] = np.array(sorted(host.engine.core_set()),
+                                           np.int64)
     ari_ins = adjusted_rand_index(
         y, np.array([labels_ins[i] for i in range(n_points)]))
 
@@ -541,6 +599,8 @@ def run_main_path(n_points: int, device: str):
     if labels_del != host.labels():
         raise AssertionError("labels() differ after the deletes")
     kept["labels_after_deletes"] = label_array(labels_del)
+    kept["cores_after_deletes"] = np.array(sorted(host.engine.core_set()),
+                                           np.int64)
     kept["victims"] = victims
     live = np.array(sorted(labels_del))
     ari_del = adjusted_rand_index(
@@ -1242,6 +1302,635 @@ def run_tiered_path(exact_labels: dict):
         "served_ari_vs_exact": ari_of(served, exact),
         "back_equal_host_soa": True, "launches": ops.launch_counts(),
     }
+
+
+# ---------------------------------------------------------------------- #
+# sharded path: the coordinator over soa-device shards on the card
+# ---------------------------------------------------------------------- #
+def sharded_cfg(inner: str, **kw):
+    """Phase 3e's config: SHARDS shards of ``inner`` on a pool of as many
+    threads, traced, at phase 3's d, k, t, eps and seed."""
+    from repro_torch.api import ClusterConfig
+
+    base = dict(d=D, k=K, t=T, eps=EPS, seed=SEED, backend="sharded",
+                shards=SHARDS, inner_backend=inner, workers=SHARDS,
+                obs=True)
+    base.update(kw)
+    return ClusterConfig(**base)
+
+
+def partition_agreement(labels: dict, ref) -> dict:
+    """ARI of ``labels`` against ``ref`` (a ``label_array``) and the
+    points outside the best one-to-one matching of their clusters (noise
+    matched to noise): border points whose tie picked another colliding
+    cluster land there."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    ids, want = ref[0], ref[1]
+    got = np.array([labels[int(i)] for i in ids], np.int64)
+    _, wi = np.unique(want, return_inverse=True)
+    _, gi = np.unique(got, return_inverse=True)
+    table = np.zeros((wi.max() + 1, gi.max() + 1), np.int64)
+    np.add.at(table, (wi, gi), 1)
+    rows, cols = linear_sum_assignment(-table)
+    return {"ari": ari_of(labels, ref),
+            "outside_best_bijection": int(len(ids) - table[rows, cols].sum())}
+
+
+def same_cores_and_noise(index, labels: dict, want_labels, want_cores,
+                         tag: str) -> None:
+    """The reference's contract for a sharded index against the unsharded
+    engine (``shard/index.py``): the same live ids, noise set and cores."""
+    import numpy as np
+
+    ids = np.array(sorted(labels), np.int64)
+    if not np.array_equal(ids, want_labels[0]):
+        raise AssertionError(f"3e {tag}: live ids differ from phase 3's")
+    noise = np.array([labels[int(i)] == -1 for i in ids])
+    if not np.array_equal(noise, want_labels[1] == -1):
+        raise AssertionError(f"3e {tag}: noise set differs from phase 3's")
+    cores = np.array([i for i in ids if index.is_core(int(i))], np.int64)
+    if not np.array_equal(cores, want_cores):
+        raise AssertionError(f"3e {tag}: core set differs from phase 3's")
+
+
+def sorted_deltas(deltas) -> list:
+    """A change feed in a total order: a sharded feed may hold one id
+    twice, (idx, old, None) from one shard and (idx, None, new) from
+    another, when a rebalance moved it."""
+    return sorted(deltas, key=lambda r: tuple(-1 if v is None else v
+                                              for v in r))
+
+
+def card_apps() -> list:
+    """``nvidia-smi``'s compute apps as (pid, used memory) lines (in a
+    container the pid is the host's, not ours)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def holds_card(pid: int) -> bool:
+    """Whether process ``pid`` has a GPU device file (/dev/nvidia<N>)
+    open: every process with a CUDA context does."""
+    import os
+    import re
+
+    fd_dir = Path(f"/proc/{pid}/fd")
+    for fd in fd_dir.iterdir():
+        try:
+            if re.fullmatch(r"/dev/nvidia\d+", os.readlink(fd)):
+                return True
+        except OSError:  # closed since the listing
+            continue
+    return False
+
+
+def keep_shard_passes(eng) -> dict:
+    """Wrap one shard engine's two device passes for their next call: the
+    dict returned gets the inputs each kernel launched on (the points, the
+    pending directory updates and the directory mirror as the hash pass
+    hands them over, after any rebuild; the slots and the host size table
+    before the stats pass) and what each pass returned.  The wrappers take
+    themselves off after that call."""
+    import numpy as np
+
+    seen = {}
+    hp, dp = eng._hpass, eng._dpass
+
+    def updates(host_dir):
+        cells = type(hp)._updates(hp, host_dir)
+        seen.update(upd=cells.copy(), table=hp.table.clone())
+        return cells
+
+    def hash_run(X, host_dir):
+        try:
+            keys, slots = type(hp).run(hp, X, host_dir)
+        finally:
+            del hp._updates, hp.run
+        seen.update(x=np.asarray(X, np.float32), keys=keys.copy(),
+                    hits=slots.copy())
+        return keys, slots
+
+    def stats_run(slots, host_sizes, k, *rest):
+        before = host_sizes.copy()
+        try:
+            out = type(dp).run(dp, slots, host_sizes, k, *rest)
+        finally:
+            del dp.run
+        seen.update(slots=slots.copy(), k=k, sizes_before=before,
+                    sizes=host_sizes.copy(), support=out[-1].copy())
+        return out
+
+    hp._updates, hp.run, dp.run = updates, hash_run, stats_run
+    return seen
+
+
+def shard_pass_check(seen, eng, card: str) -> dict:
+    """``lsh_hash_resolve`` and ``bucket_insert_pass`` on the card at one
+    shard's sub-batch of 3e (a)'s last insert batch (``keep_shard_passes``):
+    each on copies of the inputs it launched on, bit-exact against its
+    plain version on other copies (the directory each leaves too), and
+    equal to what the shard computed; then timed beside the plain version
+    (CUDA events; the hash pass with no update, the stats pass on a scratch
+    table that grows a sub-batch a call)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    hp = eng._hpass
+    dev = hp.table.device
+    x = torch.from_numpy(seen["x"]).to(dev)
+    upd = torch.from_numpy(seen["upd"]).to(dev)
+    kw = {"inv_cell": hp.inv_cell}
+    n, t = seen["hits"].shape
+    m = n * t
+    tabs = [seen["table"].clone(), seen["table"].clone()]
+    got = ops.lsh_hash_resolve(x, hp.eta, hp.mixers, directory=tabs[0],
+                               updates=upd.clone(), **kw)
+    want = ops.lsh_hash_resolve(x, hp.eta, hp.mixers, directory=tabs[1],
+                                updates=upd.clone(), impl="ref", **kw)
+    err_h = max_abs_err(got, want)
+    if live_cells(tabs[0]) != live_cells(tabs[1]):
+        raise AssertionError("3e (a): lsh_hash_resolve's directory differs "
+                             "from its plain version's at a shard's "
+                             "sub-batch")
+    out = got.cpu().numpy()
+    if not (np.array_equal(out[:2 * m], seen["keys"].ravel())
+            and np.array_equal(out[2 * m:], seen["hits"].ravel())):
+        raise AssertionError("3e (a): lsh_hash_resolve differs from the "
+                             "shard's hash pass of its sub-batch")
+    slots = torch.from_numpy(seen["slots"]).to(dev)
+    pre = torch.from_numpy(seen["sizes_before"]).to(dev)
+    k, ns = seen["k"], len(seen["sizes_before"])
+    a, b = pre.clone(), pre.clone()
+    got = ops.bucket_insert_pass(slots, a, k=k)
+    err_s = max(max_abs_err(got, ops.bucket_insert_pass(slots, b, k=k,
+                                                        impl="ref")),
+                max_abs_err(a, b))
+    if not np.array_equal(got.cpu().numpy(), np.concatenate(
+            [seen["sizes"], seen["support"]])):
+        raise AssertionError("3e (a): bucket_insert_pass differs from the "
+                             "shard's stats pass of its sub-batch")
+    if err_h or err_s:
+        raise AssertionError(f"3e (a): at a shard's sub-batch the kernels "
+                             f"differ from their plain versions (max abs "
+                             f"err {err_h}, {err_s})")
+    none = torch.zeros((0, 4), dtype=torch.int32, device=dev)
+    hbuf = torch.empty(3 * m, dtype=torch.int32, device=dev)
+    sbuf = torch.empty(ns + n, dtype=torch.int32, device=dev)
+    scratch = pre.clone()
+
+    def resolve(impl):
+        return ops.lsh_hash_resolve(x, hp.eta, hp.mixers,
+                                    directory=tabs[0], updates=none,
+                                    out=hbuf, impl=impl, **kw)
+
+    def stats(impl):
+        return ops.bucket_insert_pass(slots, scratch, k=k, out=sbuf,
+                                      impl=impl)
+    row = {"rows": n, "t": t, "updates": len(seen["upd"]),
+           "dir_cap": int(tabs[0].shape[0]), "n_slots": ns,
+           "lsh_hash_resolve_max_abs_err": err_h,
+           "bucket_insert_pass_max_abs_err": err_s,
+           "lsh_hash_resolve_ms": time_ms(lambda: resolve(None)),
+           "lsh_hash_resolve_plain_ms": time_ms(lambda: resolve("ref"),
+                                                reps=20, warmup=2),
+           "bucket_insert_pass_ms": time_ms(lambda: stats(None)),
+           "bucket_insert_pass_plain_ms": time_ms(lambda: stats("ref"),
+                                                  reps=20, warmup=2),
+           "card": card}
+    print(f"3e (a) sub-batch check: {n} x {t} rows of one shard, "
+          f"{row['updates']} directory updates, {ns} slots: both kernels "
+          f"bit-exact against their plain versions and equal to the "
+          f"shard's passes; lsh_hash_resolve {row['lsh_hash_resolve_ms']:.5f}"
+          f" ms (plain {row['lsh_hash_resolve_plain_ms']:.4f}), "
+          f"bucket_insert_pass {row['bucket_insert_pass_ms']:.5f} ms (plain "
+          f"{row['bucket_insert_pass_plain_ms']:.4f})  [{card}]", flush=True)
+    return row
+
+
+def fanout_in_turns(X, device: str, card: str) -> dict:
+    """3e (a)'s insert batches, the first FANOUT_BATCHES of the stream on
+    an uninstrumented index with no host twin, with the fan-out serial
+    (``workers=0``) and on a pool of SHARDS threads, in turns (serial,
+    pool, pool, serial), each run on a fresh index: the host clock around
+    ``insert_batch`` and the feed's drain, ms a batch."""
+    import numpy as np
+
+    from repro_torch.api import build_index
+
+    n = min(len(X), FANOUT_BATCHES * BATCH)
+    runs = []
+    for workers in (0, SHARDS, SHARDS, 0):
+        ix = build_index(sharded_cfg("soa-device", workers=workers,
+                                     obs=False), device=device)
+        try:
+            ix.drain_deltas()
+            ms = []
+            for b in range(-(-n // BATCH)):
+                t0 = time.perf_counter()
+                ix.insert_batch(X[b * BATCH:min(n, (b + 1) * BATCH)])
+                ix.drain_deltas()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            ix.close()
+        runs.append({"workers": workers, "total_s": sum(ms) / 1e3,
+                     "median_ms": float(np.median(ms)),
+                     "mean_ms": float(np.mean(ms))})
+    print(f"3e (a) fan-out in turns, {n} points, insert batch ms (median) "
+          f"serial / pool / pool / serial: "
+          + ", ".join(f"{r['median_ms']:.3f}" for r in runs)
+          + f"  [{card}]", flush=True)
+    return {"points": n, "runs": runs, "card": card}
+
+
+def run_sharded_local(X, kept: dict, device: str, card: str):
+    """Phase 3e (a): the sharded index, four ``soa-device`` shards on the
+    card behind the local transport with a pool of four threads, over
+    phase 3's stream beside the same config with host ``soa`` shards;
+    returns (metrics, what (b) is held against)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.api import build_index, restore_index
+    from repro_torch.kernels import ops
+    from repro_torch.obs import span_stats
+    from repro_torch.shard import propose_rebalance
+
+    n_points = len(X)
+    n_batches = -(-n_points // BATCH)
+    rng = np.random.default_rng(SEED + 2)
+    dev = build_index(sharded_cfg("soa-device"), device=device)
+    host = build_index(sharded_cfg("soa"))
+    for ix in (dev, host):
+        if ix.inners[0].engine.use_device != (ix is dev):
+            raise AssertionError("3e (a): shards on the wrong engine")
+    if any(ix.engine.device.type != device for ix in dev.inners):
+        raise AssertionError(f"3e (a): a shard is not on {device}")
+    rest = None
+    try:
+        dev.drain_deltas()
+        host.drain_deltas()
+        ops.reset_launch_counts()
+        keep = {"deltas": []}
+        ins_s = labels_s = label_s = 0.0
+        sub_batches = 0
+        for b in range(n_batches):
+            Xb = X[b * BATCH:(b + 1) * BATCH]
+            to = dev.router.shards_batch(Xb)
+            sub_batches += len(np.unique(to))
+            if b == n_batches - 1:  # the fullest shard's sub-batch
+                probe = int(np.bincount(to, minlength=SHARDS).argmax())
+                passes = keep_shard_passes(dev.inners[probe].engine)
+            t0 = time.perf_counter()
+            ids = dev.insert_batch(Xb)
+            deltas = sorted_deltas(dev.drain_deltas())
+            ins_s += time.perf_counter() - t0
+            if host.insert_batch(Xb) != ids:
+                raise AssertionError(f"3e (a) batch {b}: ids differ")
+            if sorted_deltas(host.drain_deltas()) != deltas:
+                raise AssertionError(f"3e (a) batch {b}: deltas differ "
+                                     "from the host sharded run's")
+            if b < PROCESS_BATCHES:
+                keep["deltas"].append(deltas)
+            sample = [int(i) for i in rng.choice(ids, size=32,
+                                                 replace=False)]
+            t0 = time.perf_counter()
+            got = [dev.label(i) for i in sample]
+            label_s += time.perf_counter() - t0
+            if got != [host.label(i) for i in sample]:
+                raise AssertionError(f"3e (a) batch {b}: label() differs")
+            if b % 10 == 9:
+                t0 = time.perf_counter()
+                lab = dev.labels()
+                labels_s += time.perf_counter() - t0
+                if lab != host.labels():
+                    raise AssertionError(f"3e (a) batch {b}: labels() "
+                                         "differ")
+            if b == min(PROCESS_BATCHES, n_batches) - 1:
+                # after the label() calls: labels() warms the index's
+                # cache, which label() then answers from
+                keep["labels"] = host.labels()
+        entries = ops.entry_launch_counts()
+        launches = ops.launch_counts()
+        want = {"lsh_hash_resolve": sub_batches,
+                "bucket_insert_pass": sub_batches, "lsh_hash": 0,
+                "slot_counts": 0, "bucket_core_stats": 0}
+        if device != "cpu" and {k: entries[k] for k in want} != want:
+            raise AssertionError(f"3e (a): kernel entries "
+                                 f"{ {k: entries[k] for k in want} }, "
+                                 f"expected {want}")
+        # the coordinator's split of an insert batch, from its spans
+        spans = {r["op"]: r
+                 for r in span_stats(dev.obs.snapshot()["spans"])}
+        route_s = spans["coord.route_and_key"]["total_us"] / 1e6
+        fan_s = spans["coord.fanout"]["total_us"] / 1e6
+        sub_check = shard_pass_check(passes, dev.inners[probe].engine,
+                                     card)
+        sub_check["shard"] = probe
+        lab_ins = dev.labels()
+        if lab_ins != host.labels():
+            raise AssertionError("3e (a): labels() differ after the "
+                                 "inserts")
+        same_cores_and_noise(dev, lab_ins, kept["labels_after_inserts"],
+                             kept["cores_after_inserts"], "inserts")
+        agree_ins = partition_agreement(lab_ins,
+                                        kept["labels_after_inserts"])
+
+        sizes_before = dev.shard_sizes()
+        plan = propose_rebalance(dev)
+        if plan != propose_rebalance(host):
+            raise AssertionError("3e (a): rebalance plans differ")
+        t0 = time.perf_counter()
+        moved = dev.rebalance(plan) if plan is not None else {"moved": 0}
+        rebalance_s = time.perf_counter() - t0
+        if plan is not None and host.rebalance(plan) != moved:
+            raise AssertionError("3e (a): rebalance moved other points")
+        sizes_after = dev.shard_sizes()
+        lab = dev.labels()
+        if lab != host.labels() or lab != lab_ins:
+            raise AssertionError("3e (a): labels() changed in the "
+                                 "rebalance")
+        if sizes_after != host.shard_sizes():
+            raise AssertionError("3e (a): shard sizes differ after the "
+                                 "rebalance")
+        if sorted_deltas(dev.drain_deltas()) != \
+                sorted_deltas(host.drain_deltas()):
+            raise AssertionError("3e (a): the rebalance's deltas differ")
+
+        del_s = 0.0
+        victims = kept["victims"]
+        for b in range(0, len(victims), BATCH):
+            vb = [int(i) for i in victims[b:b + BATCH]]
+            t0 = time.perf_counter()
+            dev.delete_batch(vb)
+            deltas = sorted_deltas(dev.drain_deltas())
+            del_s += time.perf_counter() - t0
+            host.delete_batch(vb)
+            if sorted_deltas(host.drain_deltas()) != deltas:
+                raise AssertionError(f"3e (a) delete batch {b // BATCH}: "
+                                     "deltas differ")
+        lab_end = dev.labels()
+        if lab_end != host.labels():
+            raise AssertionError("3e (a): labels() differ after the "
+                                 "deletes")
+        same_cores_and_noise(dev, lab_end, kept["labels_after_deletes"],
+                             kept["cores_after_deletes"], "deletes")
+        agree_end = partition_agreement(lab_end,
+                                        kept["labels_after_deletes"])
+        t0 = time.perf_counter()
+        dev.check_invariants()
+        host.check_invariants()
+        check_s = time.perf_counter() - t0
+
+        rest = restore_index(dev.snapshot(), device=device)
+        if rest.labels() != lab_end:
+            raise AssertionError("3e (a): labels differ after snapshot + "
+                                 "restore")
+        rest.check_invariants()
+
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = dev.write_trace(Path(tmp) / "sharded_trace.json")
+            trace_bytes = trace.stat().st_size
+            report = subprocess.run(
+                [sys.executable, "-m", "repro_torch.obs", "report",
+                 str(trace)], capture_output=True, text=True, timeout=300,
+                env=dict(os.environ, PYTHONPATH=str(PKG.parent)))
+        if report.returncode != 0:
+            raise AssertionError("3e (a): obs report failed: "
+                                 + report.stderr[-2000:])
+        stats = dev.stats()
+    finally:
+        for ix in (dev, host, rest):
+            if ix is not None:
+                ix.close()
+    n_del = len(kept["victims"])
+    return {
+        "points": n_points, "shards": SHARDS, "workers": SHARDS,
+        "inner": "soa-device", "insert_batches": n_batches,
+        "sub_batches": sub_batches, "entry_launches": entries,
+        "launches": launches,
+        "insert_pts_per_s": n_points / ins_s,
+        "delete_pts_per_s": n_del / del_s, "insert_s": ins_s,
+        "delete_s": del_s, "labels_s": labels_s,
+        "labels_s_per_call": labels_s / (n_batches // 10 or 1),
+        "label_us_per_call": label_s / (32 * n_batches) * 1e6,
+        "route_and_key_ms_per_batch": route_s / n_batches * 1e3,
+        "fanout_ms_per_batch": fan_s / n_batches * 1e3,
+        "rest_of_insert_ms_per_batch":
+            (ins_s - route_s - fan_s) / n_batches * 1e3,
+        "sub_batch_check": sub_check,
+        "shard_sizes_before_rebalance": sizes_before,
+        "shard_sizes_after_rebalance": sizes_after,
+        "rebalance_plan": None if plan is None else
+            [plan.start, plan.stop, plan.target],
+        "rebalance_moved": moved["moved"], "rebalance_s": rebalance_s,
+        "check_invariants_s": check_s,
+        "agreement_after_inserts": agree_ins,
+        "agreement_after_deletes": agree_end,
+        "stats": stats, "report_top": report.stdout.splitlines()[:12],
+        "trace_bytes": trace_bytes,
+        "equal_host_sharded": True, "cores_noise_equal_phase3": True,
+        "restore_labels_equal": True, "card": card,
+    }, keep
+
+
+def run_sharded_process(X, keep: dict, device: str, card: str) -> dict:
+    """Phase 3e (b): (a)'s config with ``transport="process"``, four
+    workers spawned with ``--device``, over the first PROCESS_BATCHES
+    insert batches, held against (a)'s host run; then a snapshot
+    restored on the local transport."""
+    import numpy as np
+
+    from repro_torch.api import build_index, restore_index
+    from repro_torch.kernels import ops
+
+    n = min(len(X), PROCESS_BATCHES * BATCH)
+    t0 = time.perf_counter()
+    ix = build_index(sharded_cfg("soa-device", transport="process"),
+                     device=device)
+    spawn_s = time.perf_counter() - t0
+    rest = None
+    try:
+        pids = [c._proc.pid for c in ix.clients]
+        ix.drain_deltas()
+        ops.reset_launch_counts()
+        ins_s = 0.0
+        for b in range(-(-n // BATCH)):
+            t0 = time.perf_counter()
+            ix.insert_batch(X[b * BATCH:min(n, (b + 1) * BATCH)])
+            deltas = sorted_deltas(ix.drain_deltas())
+            ins_s += time.perf_counter() - t0
+            if deltas != keep["deltas"][b]:
+                raise AssertionError(f"3e (b) batch {b}: deltas differ "
+                                     "from (a)'s host run")
+        # nvidia-smi lists one compute app a process with a context (the
+        # coordinator's too), but in a container under a pid that is not
+        # ours: the count is checked, and each worker's own device file
+        apps = card_apps() if device != "cpu" else []
+        missing = [p for p in pids if device != "cpu" and
+                   not holds_card(p)]
+        if missing or (device != "cpu" and len(apps) < len(pids)):
+            raise AssertionError(f"3e (b): workers {missing} hold no "
+                                 f"context on the card (nvidia-smi lists "
+                                 f"{apps})")
+        t0 = time.perf_counter()
+        lab = ix.labels()
+        labels_s = time.perf_counter() - t0
+        if lab != keep["labels"]:
+            raise AssertionError(f"3e (b): labels after {n} points "
+                                 "differ from (a)'s")
+        if any(ops.launch_counts().values()):
+            raise AssertionError("3e (b): the coordinator launched a "
+                                 "kernel")
+        for c in ix.clients:  # each shard's invariants, its mirrors too
+            c.check_invariants()
+        snap = ix.snapshot()
+        snap = dict(snap, config=dict(snap["config"], transport="local"))
+        rest = restore_index(snap, device=device)
+        if rest.labels() != lab:
+            raise AssertionError("3e (b): labels differ after a restore "
+                                 "on the local transport")
+        st = ix.stats()
+    finally:
+        for c in (ix, rest):
+            if c is not None:
+                c.close()
+    alive = [p for p in pids if _alive(p)]
+    if alive:
+        raise AssertionError(f"3e (b): workers {alive} outlived close()")
+    return {"points": n, "workers_pids": pids, "nvidia_smi_apps": apps,
+            "spawn_s": spawn_s,
+            "insert_pts_per_s": n / ins_s, "labels_s": labels_s,
+            "round_trips": st["transport_round_trips"],
+            "bytes_sent": st["transport_bytes_sent"],
+            "bytes_received": st["transport_bytes_received"],
+            "workers_on_card": True, "equal_a_host": True,
+            "restore_local_equal": True, "card": card}
+
+
+def _alive(pid: int) -> bool:
+    import os
+
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def run_sharded_failover(device: str, card: str) -> dict:
+    """Phase 3e (c): ``transport="tcp"``, two shards of one primary and
+    one replica each on the card, over Table 2's scale (blobs of
+    20,000 x 10, batches of 1000, 25% deleted); shard 0's primary is
+    killed after batch FAILOVER_KILL_AFTER as the reference's serving mix
+    does; every request must succeed and the labels equal an in-process
+    host oracle's; the lane must come back to two members."""
+    import numpy as np
+
+    from repro_torch.api import build_index
+    from repro_torch.data import blobs
+
+    X, _ = blobs(n=BASELINE_POINTS, d=D, n_clusters=10, seed=SEED)
+    victims = np.random.default_rng(SEED + 3).permutation(
+        BASELINE_POINTS)[:int(BASELINE_POINTS * DELETE_FRACTION)]
+    cfg = sharded_cfg("soa-device", shards=2, workers=2, transport="tcp",
+                      replicas=1)
+    oracle = build_index(sharded_cfg("soa", shards=2, workers=0,
+                                     transport="local"))
+    t0 = time.perf_counter()
+    ix = build_index(cfg, device=device)
+    spawn_s = time.perf_counter() - t0
+    pids = []
+    try:
+        pids = [mem.client._proc.pid for lane in ix.clients
+                for mem in lane._members]
+        lane = ix.clients[0]
+        killed = None
+        n_batches = BASELINE_POINTS // BATCH
+        checks = 0
+        for b in range(n_batches):
+            Xb = X[b * BATCH:(b + 1) * BATCH]
+            if ix.insert_batch(Xb) != oracle.insert_batch(Xb):
+                raise AssertionError(f"3e (c) batch {b}: ids differ")
+            if b + 1 == FAILOVER_KILL_AFTER:  # serving_mix._kill_one
+                killed = lane._members[0].client._proc
+                killed.kill()
+                killed.wait(timeout=30)
+            if b % 5 == 4:
+                checks += 1
+                if ix.labels() != oracle.labels():
+                    raise AssertionError(f"3e (c) batch {b}: labels differ "
+                                         "from the host oracle")
+        for b in range(0, len(victims), BATCH):
+            vb = [int(i) for i in victims[b:b + BATCH]]
+            ix.delete_batch(vb)
+            oracle.delete_batch(vb)
+        if ix.labels() != oracle.labels():
+            raise AssertionError("3e (c): labels at the end differ from "
+                                 "the host oracle")
+        deadline = time.monotonic() + 300
+        while lane.n_members < 2 and time.monotonic() < deadline:
+            ix.check_health()
+            time.sleep(0.5)
+        if lane.n_members != 2 or lane.n_repairs:
+            raise AssertionError(f"3e (c): lane 0 has {lane.n_members} "
+                                 "members after check_health()")
+        pids = [mem.client._proc.pid for lane_ in ix.clients
+                for mem in lane_._members]
+        if device != "cpu" and not all(holds_card(p) for p in pids):
+            raise AssertionError(f"3e (c): members {pids} not all on the "
+                                 "card")
+        for lane_ in ix.clients:  # shard invariants, replicas byte-equal
+            lane_.check_invariants()
+        metrics = ix.obs.snapshot()["metrics"]
+        failover = {k: v["value"] for k, v in metrics.items()
+                    if k.startswith(("failover.", "rpc."))
+                    and "value" in v}
+        if failover["failover.promotions"] < 1 or \
+                failover["failover.resyncs"] < 1:
+            raise AssertionError(f"3e (c): no promotion or resync: "
+                                 f"{failover}")
+        st = ix.stats()
+    finally:
+        ix.close()
+        oracle.close()
+    alive = [p for p in pids if _alive(p)]
+    if alive:
+        raise AssertionError(f"3e (c): workers {alive} outlived close()")
+    return {"points": BASELINE_POINTS, "deleted": len(victims),
+            "killed_after_batch": FAILOVER_KILL_AFTER,
+            "killed_pid": killed.pid, "spawn_s": spawn_s,
+            "label_checks": checks + 1, "counters": failover,
+            "round_trips": st["transport_round_trips"],
+            "members_pids": pids, "no_request_failed": True,
+            "equal_host_oracle": True, "card": card}
+
+
+def run_sharded_path(n_points: int, device: str, kept: dict, card: str):
+    """Phase 3e: (a) local, (b) process, (c) tcp with a killed primary."""
+    from repro_torch.data import DATASET_SPECS, blobs
+
+    _n, d, n_clusters = DATASET_SPECS["blobs"]
+    X, _y = blobs(n=n_points, d=d, n_clusters=n_clusters, seed=SEED)
+    t0 = time.perf_counter()
+    a, keep = run_sharded_local(X, kept, device, card)
+    a["wall_s"] = time.perf_counter() - t0
+    a["fanout_in_turns"] = fanout_in_turns(X, device, card)
+    t0 = time.perf_counter()
+    b = run_sharded_process(X, keep, device, card)
+    b["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c = run_sharded_failover(device, card)
+    c["wall_s"] = time.perf_counter() - t0
+    return {"a": a, "b": b, "c": c}
 
 
 # ---------------------------------------------------------------------- #
@@ -2899,7 +3588,51 @@ def main(argv=None) -> int:
           f" escalations {tier['escalations']}; back tier equal to host "
           f"soa; phase {tier['wall_s']:.1f} s  [{card}]", flush=True)
     print("tiered_path " + json.dumps(tier), flush=True)
-    del kept, soa_c
+    del soa_c
+
+    # 3e. sharded path: the coordinator over four soa-device shards on the
+    #     card, in process (a), as worker processes (b) and as TCP workers
+    #     with replicas through a killed primary (c)
+    sharded = run_sharded_path(args.points, "cuda", kept, card)
+    sa, sb, sc = sharded["a"], sharded["b"], sharded["c"]
+    print(f"sharded (a): {SHARDS} soa-device shards, {sa['workers']} "
+          f"threads, {sa['points']} points: insert "
+          f"{sa['insert_pts_per_s']:.1f} points/s, delete "
+          f"{sa['delete_pts_per_s']:.1f} points/s, labels() "
+          f"{sa['labels_s_per_call']:.3f} s, label() "
+          f"{sa['label_us_per_call']:.1f} us; a batch: coordinator hash "
+          f"pass (_route_and_key) {sa['route_and_key_ms_per_batch']:.3f} "
+          f"ms, fan-out {sa['fanout_ms_per_batch']:.3f} ms, the rest "
+          f"{sa['rest_of_insert_ms_per_batch']:.3f} ms; launches "
+          f"{sa['entry_launches']['lsh_hash_resolve']} + "
+          f"{sa['entry_launches']['bucket_insert_pass']} for "
+          f"{sa['sub_batches']} sub-batches; shard sizes "
+          f"{sa['shard_sizes_before_rebalance']} -> "
+          f"{sa['shard_sizes_after_rebalance']} (moved "
+          f"{sa['rebalance_moved']}); vs phase 3: ARI "
+          f"{sa['agreement_after_inserts']['ari']:.6f} / "
+          f"{sa['agreement_after_deletes']['ari']:.6f}, outside the best "
+          f"bijection {sa['agreement_after_inserts']['outside_best_bijection']}"
+          f" / {sa['agreement_after_deletes']['outside_best_bijection']}; "
+          f"phase {sa['wall_s']:.1f} s  [{card}]", flush=True)
+    print("sharded (a) stats " + json.dumps(sa["stats"]), flush=True)
+    print("sharded (a) obs report:\n  " + "\n  ".join(sa["report_top"]),
+          flush=True)
+    print(f"sharded (b): process transport, {len(sb['workers_pids'])} "
+          f"workers on the card (pids {sb['workers_pids']}), "
+          f"{sb['points']} points: insert {sb['insert_pts_per_s']:.1f} "
+          f"points/s, spawn {sb['spawn_s']:.1f} s, round trips "
+          f"{sb['round_trips']}, bytes sent {sb['bytes_sent']} / received "
+          f"{sb['bytes_received']}; phase {sb['wall_s']:.1f} s  [{card}]",
+          flush=True)
+    print(f"sharded (c): tcp, 2 shards x (primary + 1 replica), "
+          f"{sc['points']} points, primary of shard 0 killed after batch "
+          f"{sc['killed_after_batch']}: no request failed, labels equal "
+          f"the host oracle at {sc['label_checks']} checks; counters "
+          f"{json.dumps(sc['counters'])}; phase {sc['wall_s']:.1f} s  "
+          f"[{card}]", flush=True)
+    print("sharded_path " + json.dumps(sharded), flush=True)
+    del kept
     gc.collect()
 
     # 4. baselines path
@@ -2942,6 +3675,18 @@ def main(argv=None) -> int:
         "batched_device_insert_batches": -(-args.points // BATCH),
         "batched_device_ms": kh["ms"],
         "batched_device_plain_ms": kh["plain_ms"]})
+    # the main path's two entries on the sharded path, phase 3e (a): one
+    # launch per non-empty sub-batch of each shard
+    for k in kernels:
+        if k["name"] in MAIN_ENTRIES:
+            k["sharded_launches"] = sa["entry_launches"][k["name"]]
+            k["sharded_sub_batches"] = sa["sub_batches"]
+            sub = sa["sub_batch_check"]
+            k["sharded_check"] = {
+                "rows": sub["rows"], "shard": sub["shard"],
+                "max_abs_err": sub[f"{k['name']}_max_abs_err"],
+                "ms": sub[f"{k['name']}_ms"],
+                "plain_ms": sub[f"{k['name']}_plain_ms"]}
     share = sum(k["launches"] * k["ms"] for k in kernels
                 if k["name"] in MAIN_ENTRIES) / 1e3 / metrics["insert_s"]
     print(f"main-path kernel time (launches x ms per call) / insert wall "

@@ -25,6 +25,11 @@ key                engine
 ``naive``          exact Algorithm-1 DBSCAN recompute-per-query
                    baseline, host only (float64 numpy; no kernel)
 ``emz-fixed``      EMZFixedCore §5 ablation (insert-only), host only
+``sharded``        ShardedIndex — ``shards`` shards of ``inner_backend``
+                   behind the wire protocol (``repro_torch.shard``,
+                   ``transport`` local / process / tcp); on ``device``
+                   ("cuda" by default) when the inner backend is a
+                   device backend, else host only
 =================  ==================================================
 
 The recompute baselines are *lazy*: mutations only touch the point store;
@@ -35,8 +40,7 @@ device but ``None`` and "cpu"; the device backends are listed in
 :data:`~repro_torch.api.registry.DEVICE_BACKENDS`.  The sampled tier's
 device path is reached as in the reference, through the engine:
 ``ApproxIndex(cfg, SampledCoreDBSCAN(..., use_device=True,
-device="cuda"))``.  The one backend of ``repro.api`` still to come is
-``sharded``.
+device="cuda"))``.
 """
 
 from __future__ import annotations

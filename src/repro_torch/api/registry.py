@@ -24,9 +24,18 @@ _REGISTRY: Dict[str, Factory] = {}
 
 #: the built-in backends that run on a device (``device=None`` means
 #: "cuda"); every other built-in backend runs on the host and refuses any
-#: device but ``None`` and "cpu".  A caller that holds a device for its
-#: own work (the serving engine) passes it only to these.
+#: device but ``None`` and "cpu"; ``sharded`` runs where its inner
+#: backend does.  A caller that holds a device for its own work (the
+#: serving engine) passes it only where :func:`runs_on_device` says so.
 DEVICE_BACKENDS = ("batched-device", "soa-device")
+
+
+def runs_on_device(cfg: ClusterConfig) -> bool:
+    """Whether ``cfg`` builds an index that runs on a device: a device
+    backend, or ``sharded`` over one."""
+    return (cfg.backend in DEVICE_BACKENDS
+            or (cfg.backend == "sharded"
+                and cfg.inner_backend in DEVICE_BACKENDS))
 
 
 def register_backend(name: str,
@@ -75,7 +84,9 @@ def build_index(cfg: Union[ClusterConfig, str, None] = None, *,
     for its plain kernels; a host-only backend (``dynamic``, ``batched``,
     ``soa``, ``approx``, ``tiered``, ``emz-static``, ``naive``,
     ``emz-fixed``) accepts only ``None`` or "cpu" and raises on any
-    other.
+    other.  ``sharded`` passes ``device`` to every shard's index and so
+    follows its ``inner_backend``: "cuda" by default over a device
+    backend, which, like the backend itself, raises without a card.
     """
     if isinstance(cfg, str):
         cfg = ClusterConfig(backend=cfg, **kwargs)

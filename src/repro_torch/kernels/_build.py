@@ -80,6 +80,9 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 ENTRY_LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
 
 _lock = threading.Lock()
+# the counts' own lock: wrappers launch from several host threads at once
+# (a sharded index's fan-out), and ``+=`` on a dict entry is not atomic
+_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 #: each kernel's ``<name>_launch`` entry point, resolved once by :func:`load`
 _entry: Dict[str, Any] = {}
@@ -181,12 +184,14 @@ def launch(name: str, *args) -> None:
     if err:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error "
                            f"{err}")
-    for kernel in ROUTE_OF.get(name, (name,)):
-        LAUNCHES[kernel] += 1
-    ENTRY_LAUNCHES[name] += 1
+    with _count_lock:
+        for kernel in ROUTE_OF.get(name, (name,)):
+            LAUNCHES[kernel] += 1
+        ENTRY_LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ENTRY_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
+    with _count_lock:
+        for counts in (LAUNCHES, ENTRY_LAUNCHES):
+            for name in counts:
+                counts[name] = 0

@@ -57,6 +57,7 @@
 // Grid sync needs no relocatable device code (only multi-grid sync
 // does), so the sources keep their one-step build.
 
+#include <atomic>
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -145,13 +146,17 @@ int launch_insert_pass(const int32_t* slots, const uint8_t* mask, int n,
                        int t, int32_t* sizes, int32_t* core_sizes, int nb,
                        int k, int32_t* out, void* stream) {
   const int threads = 256;
-  // co-resident blocks a device: occupancy x SMs, looked up once a device
-  static int resident[64];
+  // co-resident blocks a device: occupancy x SMs, looked up once a device.
+  // Host threads may make their first call at once (a sharded index fans
+  // out to its shards on a pool): each that finds 0 computes the same value
+  // and stores it, so an atomic cell is all the cache needs.
+  static std::atomic<int> resident[64];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (resident[dev] == 0) {
+  int co_resident = resident[dev].load(std::memory_order_acquire);
+  if (co_resident == 0) {
     int per_sm = 0, sms = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, bucket_insert_pass_kernel<kMasked>, threads, 0);
@@ -160,14 +165,15 @@ int launch_insert_pass(const int32_t* slots, const uint8_t* mask, int n,
     if (err != cudaSuccess) return static_cast<int>(err);
     if (per_sm * sms <= 0)
       return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-    resident[dev] = per_sm * sms;
+    co_resident = per_sm * sms;
+    resident[dev].store(co_resident, std::memory_order_release);
   }
   const long long work =
       static_cast<long long>(n) * t > nb ? static_cast<long long>(n) * t : nb;
   long long want = (work + threads - 1) / threads;
   if (want < 1) want = 1;
   const unsigned blocks = static_cast<unsigned>(
-      want < resident[dev] ? want : resident[dev]);
+      want < co_resident ? want : co_resident);
   void* args[] = {&slots, &mask, &n, &t, &sizes, &core_sizes, &nb, &k, &out};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(bucket_insert_pass_kernel<kMasked>),

@@ -65,6 +65,7 @@
 // to the ~2.9 us a launch takes on the device at the main path's batch,
 // against ~0.4 ms of host time a pass.
 
+#include <atomic>
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -234,13 +235,17 @@ extern "C" int lsh_hash_resolve_launch(const float* x, const float* eta,
   const int threads = 256;
   if (cap <= 0 || (cap & (cap - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  // co-resident blocks a device: occupancy x SMs, looked up once a device
-  static int resident[64];
+  // co-resident blocks a device: occupancy x SMs, looked up once a device.
+  // Host threads may make their first call at once (a sharded index fans
+  // out to its shards on a pool): each that finds 0 computes the same value
+  // and stores it, so an atomic cell is all the cache needs.
+  static std::atomic<int> resident[64];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (resident[dev] == 0) {
+  int co_resident = resident[dev].load(std::memory_order_acquire);
+  if (co_resident == 0) {
     int per_sm = 0, sms = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, lsh_hash_resolve_kernel, threads, 0);
@@ -249,14 +254,15 @@ extern "C" int lsh_hash_resolve_launch(const float* x, const float* eta,
     if (err != cudaSuccess) return static_cast<int>(err);
     if (per_sm * sms <= 0)
       return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-    resident[dev] = per_sm * sms;
+    co_resident = per_sm * sms;
+    resident[dev].store(co_resident, std::memory_order_release);
   }
   const long long m = static_cast<long long>(n) * t;
   const long long work = m > n_upd ? m : n_upd;
   long long want = (work + threads - 1) / threads;
   if (want < 1) want = 1;
   const unsigned blocks = static_cast<unsigned>(
-      want < resident[dev] ? want : resident[dev]);
+      want < co_resident ? want : co_resident);
   int4* dir4 = reinterpret_cast<int4*>(dir);
   int4* upd4 = reinterpret_cast<int4*>(upd);
   void* args[] = {&x, &eta, &mixers, &inv_cell, &n, &d, &t,

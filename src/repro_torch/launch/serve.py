@@ -4,7 +4,9 @@ Mirror of ``repro.launch.serve``, plus ``--device`` (default ``cuda``)
 and ``--cluster-backend`` (the engine's keyword; default, as there,
 ``batched``, which runs on the host whatever ``--device`` is; a device
 backend, ``batched-device`` or ``soa-device``, runs on ``--device``;
-``--tier RATE`` serves from the tiered index, on the host).
+``--tier RATE`` serves from the tiered index, on the host;
+``--cluster-shards S`` shards the clustering index, its shards on
+``--device`` over a device backend, reached by ``--cluster-transport``).
 The default arch is a dense one until the SSM family is ported (the
 reference's is ``mamba2-780m``); an arch of an unported family raises.
 

@@ -18,10 +18,9 @@ The decode step is a plain call under ``torch.inference_mode()`` (the
 reference jits it).  ``cluster_backend`` keeps the reference's default,
 ``"batched"`` (host); the engine hands its device only to a device
 backend (``repro_torch.api.DEVICE_BACKENDS``, e.g. ``batched-device``,
-``soa-device``) and ``None`` to a host backend, ``tiered``
-(``cluster_tier``) among them.  A backend the port does not have yet
-raises the registry's ``KeyError`` rather than being replaced by
-another.
+``soa-device``, and ``sharded`` over one of them when
+``cluster_shards > 1``) and ``None`` to a host backend, ``tiered``
+(``cluster_tier``) among them.
 """
 
 from __future__ import annotations
@@ -33,7 +32,8 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..api import DEVICE_BACKENDS, ClusterConfig, build_index
+from ..api import ClusterConfig, build_index
+from ..api.registry import runs_on_device
 from ..models.registry import ModelAPI
 from ..obs import NULL_OBS, Obs
 
@@ -84,10 +84,10 @@ class ServingEngine:
         # (repro_torch.tiered): a sampled-core front tier at that
         # sample_rate labels requests at once while the exact tier
         # verifies on a thread; both run on the host, so the index gets
-        # no device, and close() stops its verifier.  The sharding,
-        # transport and replica knobs reach the reference's config
-        # fields; the backend they select ("sharded") comes with a later
-        # slice and raises here
+        # no device, and close() stops its verifier.  cluster_shards > 1
+        # wraps the backend into "sharded" (repro_torch.shard), whose
+        # shards run where the backend would (the model's device for a
+        # device backend) and are reached by cluster_transport
         if cluster_tier is not None:
             cluster_backend = "tiered"
         self.clusterer = None
@@ -102,8 +102,8 @@ class ServingEngine:
             # the model's device only for a backend that runs on one; a
             # host backend gets None (an explicit device would raise)
             self.clusterer = build_index(
-                ccfg, device=(str(self.device)
-                              if ccfg.backend in DEVICE_BACKENDS else None))
+                ccfg, device=(str(self.device) if runs_on_device(ccfg)
+                              else None))
         # sliding admission window: evicted at the head on every submit
         # past capacity
         self._req_window: Deque[int] = collections.deque()
@@ -219,6 +219,6 @@ class ServingEngine:
 
     def close(self) -> None:
         """Release the clusterer's external resources (the tiered index's
-        verifier thread)."""
+        verifier thread, a sharded index's pool and workers)."""
         if self.clusterer is not None:
             self.clusterer.close()

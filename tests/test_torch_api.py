@@ -40,9 +40,10 @@ def _assert_same_snapshot(a, b):
 
 def test_registry_holds_the_ported_backends():
     ported = BACKENDS + ("emz-static", "naive", "emz-fixed", "dynamic",
-                         "batched", "batched-device", "approx", "tiered")
+                         "batched", "batched-device", "approx", "tiered",
+                         "sharded")
     assert api.available_backends() == tuple(sorted(ported))
-    assert set(ported) <= set(jax_api.available_backends())
+    assert api.available_backends() == jax_api.available_backends()
 
 
 def test_config_fields_match_reference():

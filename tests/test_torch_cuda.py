@@ -2,7 +2,9 @@
 version, the ``soa-device`` engine on ``cuda`` against the host ``soa``
 engine, the sampled-core engine's device path on ``cuda`` against its
 host twin, ``batched-device`` on ``cuda`` against ``batched-device`` on
-the CPU, and the dense LM's prefill (through the flash-attention kernel)
+the CPU, ``sharded`` over ``soa-device`` shards on ``cuda`` (in process
+and in worker processes) against the same index on the CPU, and the
+dense LM's prefill (through the flash-attention kernel)
 against its decode.  Tolerance zero for the integer kernels (for
 ``eps_neighbor_counts`` because the kernel and its plain version round
 every f32 product and sum in the same order).  ``flash_attention`` sums
@@ -345,6 +347,71 @@ def test_soa_device_on_cuda_matches_host_soa(cuda, orphans):
     dev.check_invariants()
     for key, val in dev.snapshot()["state"].items():
         np.testing.assert_array_equal(val, host.snapshot()["state"][key])
+
+
+def _feed(index):
+    """The change feed in a total order (a rebalanced id shows twice:
+    (idx, old, None) from one shard, (idx, None, new) from another)."""
+    return sorted(index.drain_deltas(),
+                  key=lambda r: tuple(-1 if v is None else v for v in r))
+
+
+@pytest.mark.parametrize("transport", ["local", "process"])
+def test_sharded_soa_device_on_cuda_matches_cpu(cuda, transport):
+    """S = 2 shards of ``soa-device`` on the card (in process on a pool
+    of two threads, or in two workers spawned with ``--device cuda``)
+    against the same sharded index on the CPU: every batch's sorted
+    deltas, the labels at every batch, after a rebalance, after deletes
+    and after a snapshot restored on the card, with ``check_invariants``
+    (device mirrors equal to the host tables).  In process, each shard
+    launches ``lsh_hash_resolve`` and ``bucket_insert_pass`` once per
+    non-empty sub-batch and no standalone entry; out of process the
+    coordinator launches nothing (the workers' launches are their own)."""
+    X, _ = blobs(n=4000, d=10, n_clusters=10, seed=2)
+    cfg = ClusterConfig(d=10, k=10, t=10, eps=0.75, seed=2,
+                        backend="sharded", shards=2,
+                        inner_backend="soa-device", transport=transport,
+                        workers=2, rpc_timeout_s=30.0)
+    dev = build_index(cfg)
+    cpu = build_index(cfg.replace(transport="local"), device="cpu")
+    back = None
+    try:
+        if transport == "local":
+            assert all(ix.engine.device.type == "cuda" for ix in dev.inners)
+        ops.reset_launch_counts()
+        sub_batches = 0
+        for b in range(0, len(X), 250):
+            Xb = X[b:b + 250]
+            sub_batches += len(np.unique(dev.router.shards_batch(Xb)))
+            assert dev.insert_batch(Xb) == cpu.insert_batch(Xb)
+            assert _feed(dev) == _feed(cpu)
+            assert dev.labels() == cpu.labels()
+        entries = ops.entry_launch_counts()
+        want = sub_batches if transport == "local" else 0
+        assert entries["lsh_hash_resolve"] == entries[
+            "bucket_insert_pass"] == want
+        assert entries["lsh_hash"] == entries["slot_counts"] == \
+            entries["bucket_core_stats"] == 0
+        plan = (0, 2048, 1)
+        assert dev.rebalance(plan) == cpu.rebalance(plan)
+        assert dev.shard_sizes() == cpu.shard_sizes()
+        assert _feed(dev) == _feed(cpu)
+        victims = dev.ids()[::4]
+        for lo in range(0, len(victims), 250):
+            dev.delete_batch(victims[lo:lo + 250])
+            cpu.delete_batch(victims[lo:lo + 250])
+            assert _feed(dev) == _feed(cpu)
+        assert dev.labels() == cpu.labels()
+        dev.check_invariants()
+        back = restore_index(dev.snapshot(), device="cuda")
+        assert back.labels() == cpu.labels()
+        back.check_invariants()
+        for key, val in back.snapshot()["state"].items():
+            np.testing.assert_array_equal(val, cpu.snapshot()["state"][key])
+    finally:
+        for ix in (dev, cpu, back):
+            if ix is not None:
+                ix.close()
 
 
 @pytest.mark.parametrize("rate", [0.3, 1.0])

@@ -214,6 +214,58 @@ def test_engine_gives_its_device_only_to_device_backends(monkeypatch):
                     "batched-device": "cuda", "soa-device": "cuda"}
 
 
+@pytest.mark.parametrize("backend", ["soa-device", "batched"])
+def test_sharded_clustered_serving_matches_jax(backend):
+    """``cluster_shards=2``: the request-clustering index is ``sharded``
+    over ``backend`` on both sides (the port's ``soa-device`` shards on
+    the model's device, here the CPU), with the same clusters, schedule
+    and tokens as the JAX engine."""
+    jm, jp, tm, tp = _models("granite-20b")
+    reqs = _requests(14, tm.cfg.vocab_size, seed=2, embed=True)
+    kw = dict(batch=4, kv_len=32, cluster_requests=True,
+              cluster_backend=backend, cluster_shards=2)
+    jdone = _serve(JEngine, JRequest, jm, jp, reqs, **kw)
+    tdone = _serve(ServingEngine, Request, tm, tp, reqs, **kw)
+    assert sorted(tdone) == list(range(14))
+    for rid in jdone:
+        assert tdone[rid].cluster == jdone[rid].cluster, rid
+        assert tdone[rid].out_tokens == jdone[rid].out_tokens, rid
+    assert len({d.cluster for d in tdone.values()}) == 3
+    eng = ServingEngine(tm, tp, **kw)
+    try:
+        assert eng.clusterer.cfg.backend == "sharded"
+        assert eng.clusterer.cfg.inner_backend == backend
+        assert len(eng.clusterer.clients) == 2
+        if backend == "soa-device":
+            assert all(ix.engine.device.type == "cpu"
+                       for ix in eng.clusterer.inners)
+    finally:
+        eng.close()
+
+
+def test_engine_gives_its_device_to_sharded_device_shards(monkeypatch):
+    """With ``cluster_shards > 1`` the model's device goes to the sharded
+    index when its shards run a device backend, else ``None``."""
+    from repro_torch.serving import engine as serving_engine
+
+    seen = {}
+
+    def recording_build(cfg, device=None):
+        seen[(cfg.backend, cfg.inner_backend)] = device
+        return object()
+
+    monkeypatch.setattr(serving_engine, "build_index", recording_build)
+    on_card = types.SimpleNamespace(device=torch.device("cuda"),
+                                    decode_init=lambda b, kv_len: None)
+    for backend in ("soa", "batched", "soa-device", "batched-device"):
+        ServingEngine(on_card, None, batch=2, kv_len=16,
+                      cluster_requests=True, cluster_backend=backend,
+                      cluster_shards=2, cluster_transport="process")
+    assert seen == {("sharded", "soa"): None, ("sharded", "batched"): None,
+                    ("sharded", "soa-device"): "cuda",
+                    ("sharded", "batched-device"): "cuda"}
+
+
 def test_no_silent_host_fallback_for_a_device():
     """An explicit device on a host backend still raises, and a device
     backend on a card that is not there raises rather than run on the
@@ -258,6 +310,31 @@ def test_serve_cli_cluster_default_matches_jax(capsys):
     assert "served 6 requests, 18 tokens" in capsys.readouterr().out
     assert {r: d.cluster for r, d in done.items()} == \
         {r: d.cluster for r, d in jdone.items()}
+    assert all(d.cluster is not None for d in done.values())
+
+
+def test_serve_cli_sharded_soa_device_matches_jax(capsys):
+    """``--cluster --cluster-shards 2 --cluster-backend soa-device``: the
+    sharded clustering index with its device shards on ``--device``
+    groups the requests as the JAX launcher's sharded default
+    (``batched`` shards, which has no ``--cluster-backend``) does: the
+    same exact partition, under other opaque labels."""
+    from repro.launch import serve as jax_serve
+
+    argv = ["--arch", "granite-20b", "--smoke", "--requests", "6",
+            "--max-new", "3", "--cluster", "--cluster-shards", "2"]
+    done = serve.main(argv + ["--device", "cpu",
+                              "--cluster-backend", "soa-device"])
+    jdone = jax_serve.main(argv)
+    assert "served 6 requests, 18 tokens" in capsys.readouterr().out
+
+    def groups(d):
+        by = {}
+        for rid, req in d.items():
+            by.setdefault(req.cluster, set()).add(rid)
+        return sorted(sorted(g) for g in by.values())
+
+    assert groups(done) == groups(jdone)
     assert all(d.cluster is not None for d in done.values())
 
 
