@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--points N]
 
-Phases (1-3, 3b-3e, 4-7), each of which raises on failure (exit code
+Phases (1-3, 3b-3e, 4-8), each of which raises on failure (exit code
 != 0):
 
 1. device  — print the card (``nvidia-smi`` name and power limit, torch's
@@ -84,7 +84,7 @@ Phases (1-3, 3b-3e, 4-7), each of which raises on failure (exit code
 3e. sharded — ``backend="sharded"`` over ``soa-device`` shards on the
              card.  (a) Four shards on a pool of four threads (local
              transport, ``obs=True``) over phase 3's stream (deltas
-             drained every batch, 32 sampled ``label()`` calls a batch,
+             drained every batch, 16 sampled ``label()`` calls a batch,
              ``labels()`` every 10th), then ``rebalance(
              propose_rebalance(ix))``, phase 3's victims deleted in
              batches of 1000, snapshot + ``restore_index`` on the card:
@@ -106,12 +106,12 @@ Phases (1-3, 3b-3e, 4-7), each of which raises on failure (exit code
              coordinator's hash pass (span ``coord.route_and_key``)
              against the fan-out (span ``coord.fanout``), a batch,
              ``stats()`` and the top rows of ``python -m repro_torch.obs
-             report`` over the written trace; then the first 100 insert
+             report`` over the written trace; then the first 40 insert
              batches of the stream timed with the fan-out serial
              (``workers=0``) and on the pool, in turns (serial, pool,
              pool, serial).  (b) The same config with
              ``transport="process"``: four workers spawned with
-             ``--device cuda`` over the first 50 insert batches, each
+             ``--device cuda`` over the first 25 insert batches, each
              batch's deltas and the labels after them equal to (a)'s host
              run, every worker holding a GPU device file open, a snapshot
              restored on the local transport equal; round trips and
@@ -203,14 +203,37 @@ Phases (1-3, 3b-3e, 4-7), each of which raises on failure (exit code
              microseconds of a hash pass in the stream, under the
              profiler, back to back, back to back after 64 MB of numpy
              work, and through the old pageable route.
+8. train   — the training path.  (a) Phase 3's stream on ``soa-device``
+             to insert batch 100, saved by ``CheckpointManager.
+             save_index``, restored onto the card by ``restore_index(
+             device="cuda")``; the remaining inserts and phase 3's
+             deletes go through the restored index, every batch's deltas
+             and ``labels()`` equal to phase 3's host ``soa`` results,
+             one ``lsh_hash_resolve`` and one ``bucket_insert_pass`` per
+             insert batch.  (b) The trainer's ``CurationFilter`` on
+             ``soa-device`` beside a host ``soa`` twin over the trainer's
+             stream, keep masks equal every batch.  (c) ``launch.train.
+             train`` on granite-20b at its published widths, 4 layers,
+             batch 8 x 1,024 tokens, 10 steps: every parameter gets a
+             finite nonzero gradient, flash launches 4 x 2 (the remat
+             recompute) a step on the tensor-core route, step 1's loss and
+             gradient norm within their bf16 bound of the same step with
+             the plain attention; step ms, tokens/s, peak memory and the
+             device's busy share of one more step (profiler); the kernel
+             against its plain version at the trainer's attention shape.
+             (d) ``launch.train.main`` at the ``100m`` preset: 30 steps at
+             lr 1e-2 with a checkpoint every 10, then ``--resume`` to 32;
+             the loss falls and the resumed run takes 2 steps.
 
 The line before the last is one JSON object with a ``kernels`` list (all
 five kernels and the ``lsh_hash_resolve`` and fused
 ``bucket_insert_pass`` routes, the latter's masked route with its
 launches on the approx path; ``lsh_hash``'s entry also gives its
 launches on the dict path, and the two routes theirs on the sharded
-path, 3e (a), with their check at a shard's sub-batch); the last line is ``{"ok": true,
-"device": {...}}``.
+path, 3e (a), with their check at a shard's sub-batch, and on phase 8
+(a)'s restored index and (b)'s curation; ``flash_attention``'s its
+launches in 8 (c) and (d) and its check at the trainer's shape); the
+last line is ``{"ok": true, "device": {...}}``.
 ``--points`` cuts the main, dict and approx streams only (the cut is
 printed);
 d, k, t, eps and the batch never change.
@@ -219,6 +242,8 @@ d, k, t, eps and the batch never change.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import gc
 import json
 import subprocess
@@ -283,15 +308,19 @@ TIER_POINT = dict(n_stream=36000, window=24000, batch=1000, d=8,
 BASELINES = ("dynamic", "naive", "emz-static", "emz-fixed")
 BASELINE_POINTS = 20_000
 # the sharded path (phase 3e): four soa-device shards on a pool of four
-# threads over phase 3's stream (a), its first 100 insert batches timed
+# threads over phase 3's stream (a), its first 40 insert batches timed
 # with a serial and a pooled fan-out in turns; the same config as four
-# worker processes over its first 50 insert batches (b); two shards of a
+# worker processes over its first 25 insert batches (b); two shards of a
 # primary and a replica each over TCP at Table 2's scale, shard 0's
 # primary killed after batch 10 as benchmarks/serving_mix.py's chaos
-# does (c)
+# does (c).  The 40 and 25 are cut from 100 and 50 to keep the script
+# within its time with the training phase (8) added
 SHARDS = 4
-PROCESS_BATCHES = 50
-FANOUT_BATCHES = 100
+PROCESS_BATCHES = 25
+FANOUT_BATCHES = 40
+# label() calls a batch in (a), each held against the host shards' (cut
+# from 32 for the same reason)
+SHARDED_LABEL_SAMPLE = 16
 FAILOVER_KILL_AFTER = 10
 # shapes of the eps_neighbor_counts correctness sweep: n on the edges of
 # the kernel's 128-point tiles, 8193 (blocks start inside a row of tile
@@ -333,6 +362,40 @@ FLASH_SWEEP = (
     (1, 32, 16, 1100, 1100, 128, True, 1024),
     (1, 4, 2, 77, 77, 36, True, None),
 )
+# the trainer's attention (phase 8 (c)): granite-20b's 48 query heads on
+# one kv head at head_dim 128, and a ragged length; swept on the card
+# only: on the CPU the "kernel" is the plain version itself, whose bf16
+# logits (rounded as the reference rounds them) fall two bf16 ulps from
+# the f32 upcast's at 1,024 unmasked keys
+FLASH_SWEEP_TRAIN = (
+    (2, 48, 1, 1024, 1024, 128, True, None),
+    (1, 48, 1, 777, 777, 128, True, None),
+)
+# training path (phase 8): (a) phase 3's soa-device index saved after
+# this many insert batches and restored onto the card; (b) the trainer's
+# curation (launch/train.py's CurationFilter settings over its stream:
+# SyntheticTokenStream(vocab, 64, 8, seed=1)) on soa-device beside a host
+# soa twin, this many batches (no point leaves the 20,000-point window);
+# (c) granite-20b at its published widths (d_model 6144, 48 heads, one kv
+# head, head_dim 128, d_ff 24,576, vocab 49,152), depth cut from 52
+# layers to 4: 2.72 B parameters, whose f32 weights, gradients and two
+# moments take 43.6 GB (52 layers do not fit one 80 GB card), at the
+# trainer's --batch 8 --seq 1024 --curation balance, 10 steps; step 1's
+# loss and gradient norm within relative bounds of the same step with
+# the plain attention (the kernel's output is within one bf16 ulp of its
+# plain version's); each bound sits between the sound step's reading on
+# the card and the smallest that a step with a planted fault of one tile
+# (FAULT_TILE rows or keys, planted_fault) reads, a factor of 2 to 6 from
+# each (PERF.md section 5 keeps the readings), and each planted fault
+# must break a bound; (d) the reference trainer's test protocol at the
+# trainer's "100m" preset
+INDEX_SAVE_AT = 100
+CURATION = dict(k=8, t=8, eps=0.6, policy="balance", window=20_000)
+CURATION_SEQ, CURATION_BATCH, CURATION_BATCHES = 64, 8, 400
+TRAIN_ARCH, TRAIN_LAYERS = "granite-20b", 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 10
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 2e-5, 1e-4
+FAULT_TILE = 64
 
 
 def card_line() -> str:
@@ -1389,8 +1452,9 @@ def holds_card(pid: int) -> bool:
     return False
 
 
-def keep_shard_passes(eng) -> dict:
-    """Wrap one shard engine's two device passes for their next call: the
+def keep_passes(eng) -> dict:
+    """Wrap a ``soa-device`` engine's two device passes for their next
+    call (a shard's in 3e (a), the curation window's in 8 (b)): the
     dict returned gets the inputs each kernel launched on (the points, the
     pending directory updates and the directory mirror as the hash pass
     hands them over, after any rebuild; the slots and the host size table
@@ -1429,14 +1493,14 @@ def keep_shard_passes(eng) -> dict:
     return seen
 
 
-def shard_pass_check(seen, eng, card: str) -> dict:
-    """``lsh_hash_resolve`` and ``bucket_insert_pass`` on the card at one
-    shard's sub-batch of 3e (a)'s last insert batch (``keep_shard_passes``):
-    each on copies of the inputs it launched on, bit-exact against its
-    plain version on other copies (the directory each leaves too), and
-    equal to what the shard computed; then timed beside the plain version
-    (CUDA events; the hash pass with no update, the stats pass on a scratch
-    table that grows a sub-batch a call)."""
+def pass_check(seen, eng, card: str, tag: str) -> dict:
+    """``lsh_hash_resolve`` and ``bucket_insert_pass`` at the batch that
+    ``keep_passes`` captured (phase ``tag``): each on copies of the inputs
+    it launched on, bit-exact against its plain version on other copies
+    (the directory each leaves too), and equal to what the engine
+    computed; then, on the card, timed beside the plain version (CUDA
+    events; the hash pass with no update, the stats pass on a scratch
+    table that grows a batch a call)."""
     import numpy as np
     import torch
 
@@ -1456,14 +1520,14 @@ def shard_pass_check(seen, eng, card: str) -> dict:
                                 updates=upd.clone(), impl="ref", **kw)
     err_h = max_abs_err(got, want)
     if live_cells(tabs[0]) != live_cells(tabs[1]):
-        raise AssertionError("3e (a): lsh_hash_resolve's directory differs "
-                             "from its plain version's at a shard's "
-                             "sub-batch")
+        raise AssertionError(f"{tag}: lsh_hash_resolve's directory differs "
+                             "from its plain version's at the captured "
+                             "batch")
     out = got.cpu().numpy()
     if not (np.array_equal(out[:2 * m], seen["keys"].ravel())
             and np.array_equal(out[2 * m:], seen["hits"].ravel())):
-        raise AssertionError("3e (a): lsh_hash_resolve differs from the "
-                             "shard's hash pass of its sub-batch")
+        raise AssertionError(f"{tag}: lsh_hash_resolve differs from the "
+                             "engine's hash pass of the captured batch")
     slots = torch.from_numpy(seen["slots"]).to(dev)
     pre = torch.from_numpy(seen["sizes_before"]).to(dev)
     k, ns = seen["k"], len(seen["sizes_before"])
@@ -1474,12 +1538,18 @@ def shard_pass_check(seen, eng, card: str) -> dict:
                 max_abs_err(a, b))
     if not np.array_equal(got.cpu().numpy(), np.concatenate(
             [seen["sizes"], seen["support"]])):
-        raise AssertionError("3e (a): bucket_insert_pass differs from the "
-                             "shard's stats pass of its sub-batch")
+        raise AssertionError(f"{tag}: bucket_insert_pass differs from the "
+                             "engine's stats pass of the captured batch")
     if err_h or err_s:
-        raise AssertionError(f"3e (a): at a shard's sub-batch the kernels "
+        raise AssertionError(f"{tag}: at the captured batch the kernels "
                              f"differ from their plain versions (max abs "
                              f"err {err_h}, {err_s})")
+    row = {"rows": n, "t": t, "updates": len(seen["upd"]),
+           "dir_cap": int(tabs[0].shape[0]), "n_slots": ns,
+           "lsh_hash_resolve_max_abs_err": err_h,
+           "bucket_insert_pass_max_abs_err": err_s, "card": card}
+    if dev.type == "cpu":  # the plain versions against themselves
+        return row
     none = torch.zeros((0, 4), dtype=torch.int32, device=dev)
     hbuf = torch.empty(3 * m, dtype=torch.int32, device=dev)
     sbuf = torch.empty(ns + n, dtype=torch.int32, device=dev)
@@ -1493,23 +1563,19 @@ def shard_pass_check(seen, eng, card: str) -> dict:
     def stats(impl):
         return ops.bucket_insert_pass(slots, scratch, k=k, out=sbuf,
                                       impl=impl)
-    row = {"rows": n, "t": t, "updates": len(seen["upd"]),
-           "dir_cap": int(tabs[0].shape[0]), "n_slots": ns,
-           "lsh_hash_resolve_max_abs_err": err_h,
-           "bucket_insert_pass_max_abs_err": err_s,
-           "lsh_hash_resolve_ms": time_ms(lambda: resolve(None)),
-           "lsh_hash_resolve_plain_ms": time_ms(lambda: resolve("ref"),
-                                                reps=20, warmup=2),
-           "bucket_insert_pass_ms": time_ms(lambda: stats(None)),
-           "bucket_insert_pass_plain_ms": time_ms(lambda: stats("ref"),
-                                                  reps=20, warmup=2),
-           "card": card}
-    print(f"3e (a) sub-batch check: {n} x {t} rows of one shard, "
-          f"{row['updates']} directory updates, {ns} slots: both kernels "
-          f"bit-exact against their plain versions and equal to the "
-          f"shard's passes; lsh_hash_resolve {row['lsh_hash_resolve_ms']:.5f}"
-          f" ms (plain {row['lsh_hash_resolve_plain_ms']:.4f}), "
-          f"bucket_insert_pass {row['bucket_insert_pass_ms']:.5f} ms (plain "
+    row.update({
+        "lsh_hash_resolve_ms": time_ms(lambda: resolve(None)),
+        "lsh_hash_resolve_plain_ms": time_ms(lambda: resolve("ref"),
+                                             reps=20, warmup=2),
+        "bucket_insert_pass_ms": time_ms(lambda: stats(None)),
+        "bucket_insert_pass_plain_ms": time_ms(lambda: stats("ref"),
+                                               reps=20, warmup=2)})
+    print(f"{tag} pass check: {n} x {t} rows, {row['updates']} directory "
+          f"updates, {ns} slots: both kernels bit-exact against their "
+          f"plain versions and equal to the engine's passes; "
+          f"lsh_hash_resolve {row['lsh_hash_resolve_ms']:.5f} ms (plain "
+          f"{row['lsh_hash_resolve_plain_ms']:.4f}), bucket_insert_pass "
+          f"{row['bucket_insert_pass_ms']:.5f} ms (plain "
           f"{row['bucket_insert_pass_plain_ms']:.4f})  [{card}]", flush=True)
     return row
 
@@ -1588,7 +1654,7 @@ def run_sharded_local(X, kept: dict, device: str, card: str):
             sub_batches += len(np.unique(to))
             if b == n_batches - 1:  # the fullest shard's sub-batch
                 probe = int(np.bincount(to, minlength=SHARDS).argmax())
-                passes = keep_shard_passes(dev.inners[probe].engine)
+                passes = keep_passes(dev.inners[probe].engine)
             t0 = time.perf_counter()
             ids = dev.insert_batch(Xb)
             deltas = sorted_deltas(dev.drain_deltas())
@@ -1600,8 +1666,8 @@ def run_sharded_local(X, kept: dict, device: str, card: str):
                                      "from the host sharded run's")
             if b < PROCESS_BATCHES:
                 keep["deltas"].append(deltas)
-            sample = [int(i) for i in rng.choice(ids, size=32,
-                                                 replace=False)]
+            sample = [int(i) for i in rng.choice(
+                ids, size=SHARDED_LABEL_SAMPLE, replace=False)]
             t0 = time.perf_counter()
             got = [dev.label(i) for i in sample]
             label_s += time.perf_counter() - t0
@@ -1632,8 +1698,8 @@ def run_sharded_local(X, kept: dict, device: str, card: str):
                  for r in span_stats(dev.obs.snapshot()["spans"])}
         route_s = spans["coord.route_and_key"]["total_us"] / 1e6
         fan_s = spans["coord.fanout"]["total_us"] / 1e6
-        sub_check = shard_pass_check(passes, dev.inners[probe].engine,
-                                     card)
+        sub_check = pass_check(passes, dev.inners[probe].engine, card,
+                               "3e (a)")
         sub_check["shard"] = probe
         lab_ins = dev.labels()
         if lab_ins != host.labels():
@@ -1721,7 +1787,8 @@ def run_sharded_local(X, kept: dict, device: str, card: str):
         "delete_pts_per_s": n_del / del_s, "insert_s": ins_s,
         "delete_s": del_s, "labels_s": labels_s,
         "labels_s_per_call": labels_s / (n_batches // 10 or 1),
-        "label_us_per_call": label_s / (32 * n_batches) * 1e6,
+        "label_us_per_call": label_s / (SHARDED_LABEL_SAMPLE * n_batches)
+        * 1e6,
         "route_and_key_ms_per_batch": route_s / n_batches * 1e3,
         "fanout_ms_per_batch": fan_s / n_batches * 1e3,
         "rest_of_insert_ms_per_batch":
@@ -3094,12 +3161,14 @@ def flash_check(q, k, v, window, q_offset=0, causal=True):
 
 def flash_sweep(device: str):
     """The kernel against its plain version over the reference tests'
-    cases plus decode rows, head_dim 16 / 96 / 128 / 256 and ragged
-    lengths; returns (max f32 err, max bf16 err, cases)."""
+    cases plus decode rows, head_dim 16 / 96 / 128 / 256, ragged lengths
+    and (on the card) the trainer's shapes; returns (max f32 err, max
+    bf16 err, cases)."""
     import torch
 
     e32 = e16 = 0.0
-    for b, hq, hkv, sq, skv, dh, causal, window in FLASH_SWEEP:
+    rows = FLASH_SWEEP + (FLASH_SWEEP_TRAIN if device != "cpu" else ())
+    for b, hq, hkv, sq, skv, dh, causal, window in rows:
         g = torch.Generator(device=device).manual_seed(sq * 1000 + dh)
         q = torch.randn((b, hq, sq, dh), generator=g, device=device)
         k = torch.randn((b, hkv, skv, dh), generator=g, device=device)
@@ -3107,7 +3176,7 @@ def flash_sweep(device: str):
         a, c = flash_check(q, k, v, window, causal=causal,
                            q_offset=skv - sq if causal else 0)
         e32, e16 = max(e32, a), max(e16, c)
-    return e32, e16, len(FLASH_SWEEP)
+    return e32, e16, len(rows)
 
 
 def _leaves(tree):
@@ -3479,6 +3548,495 @@ def profile_lm(ctx, device: str) -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# training path (phase 8): index checkpoints and curation on the card,
+# the trainer at full width, the trainer's own protocol
+# ---------------------------------------------------------------------- #
+def index_checkpoint_path(n_points: int, device: str, kept: dict,
+                          directory) -> dict:
+    """8 (a): phase 3's stream on ``soa-device`` up to insert batch
+    ``INDEX_SAVE_AT`` (held against phase 3's kept host results), saved
+    through ``CheckpointManager.save_index``, restored onto ``device``;
+    the restored index takes the remaining inserts and phase 3's deletes,
+    every batch's deltas and ``labels()`` held against phase 3's."""
+    from repro_torch.api import ClusterConfig, build_index
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import DATASET_SPECS, blobs
+    from repro_torch.kernels import ops
+
+    _n, d, n_clusters = DATASET_SPECS["blobs"]
+    X, _y = blobs(n=n_points, d=d, n_clusters=n_clusters, seed=SEED)
+    n_batches = -(-n_points // BATCH)
+    save_at = min(INDEX_SAVE_AT, n_batches // 2)
+    batches = [(b * BATCH, min((b + 1) * BATCH, n_points))
+               for b in range(n_batches)]
+    check = against_kept(kept, "8 (a)")
+    cfg = ClusterConfig(d=D, k=K, t=T, eps=EPS, seed=SEED,
+                        backend="soa-device")
+    index = build_index(cfg, device=device)
+    index.drain_deltas()
+    for b, (lo, hi) in enumerate(batches[:save_at]):
+        ids = index.insert_batch(X[lo:hi])
+        check("insert", b, (lo, hi), (ids, sorted(index.drain_deltas())))
+    mgr = CheckpointManager(directory, async_write=False)
+    t0 = time.perf_counter()
+    mgr.save_index(save_at, index)
+    save_s = time.perf_counter() - t0
+    files = sorted((Path(directory) / f"index_{save_at:08d}").iterdir())
+    nbytes = sum(f.stat().st_size for f in files)
+    labels_saved = index.labels()
+    del index
+    t0 = time.perf_counter()
+    rest = mgr.restore_index(device=device)
+    _sync(device)
+    restore_s = time.perf_counter() - t0
+    if rest.labels() != labels_saved:
+        raise AssertionError("8 (a): labels differ after save_index + "
+                             "restore_index")
+    rest.drain_deltas()  # the change feed starts, as phase 3's did
+
+    def shifted(kind, b, arg, got):
+        if kind == "insert":
+            check(kind, b + save_at, arg, got)
+        elif kind == "labels":
+            if b + save_at in kept["labels"]:
+                check(kind, b + save_at, arg, got)
+        else:
+            check(kind, b, arg, got)
+
+    ops.reset_launch_counts()
+    run = drive(rest, X, batches[save_at:], victims=kept["victims"],
+                check=shifted)
+    _sync(device)
+    entries = ops.entry_launch_counts()
+    left = n_batches - save_at
+    if device != "cpu":
+        want = {"lsh_hash_resolve": left, "bucket_insert_pass": left}
+        got = {k: entries[k] for k in want}
+        if got != want:
+            raise AssertionError(f"8 (a): kernel entries on the restored "
+                                 f"index {got}, expected {want}")
+    return {"points": n_points, "saved_after_batch": save_at,
+            "save_s": save_s, "restore_s": restore_s, "bytes": nbytes,
+            "files": [f.name for f in files],
+            "restored_insert_batches": left,
+            "restored_delete_batches": -(-len(kept["victims"]) // BATCH),
+            "insert_pts_per_s": run["inserted"] / run["insert_s"],
+            "delete_pts_per_s": (run["deleted"] / run["delete_s"]
+                                 if run["delete_s"] else None),
+            "entry_launches": {k: entries[k] for k in MAIN_ENTRIES},
+            "equal_to_phase_3": True}
+
+
+def curation_path(device: str, batches: int, card: str) -> dict:
+    """8 (b): the trainer's curation (``launch/train.py``'s settings) over
+    its stream on ``soa-device`` (``device``) beside a host ``soa`` twin.
+    Every batch the keep masks, the ids and ``labels()`` of the two
+    windows must be equal (under ``balance`` on this stream the mask keeps
+    every row, so the labels are what hold the device index); at the last
+    batch ``pass_check`` holds both kernels bit-exact against their plain
+    versions on the inputs they launched on."""
+    import numpy as np
+
+    from repro_torch.api import NOISE
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import CurationFilter, SyntheticTokenStream
+    from repro_torch.kernels import ops
+
+    stream = SyntheticTokenStream(get_config(TRAIN_ARCH).vocab_size,
+                                  CURATION_SEQ, CURATION_BATCH, seed=1)
+    src = iter(stream)
+    kw = dict(d=stream.embed_dim, **CURATION)
+    dev = CurationFilter(backend="soa-device", device=device, **kw)
+    host = CurationFilter(backend="soa", **kw)
+    ops.reset_launch_counts()
+    dev_s = host_s = 0.0
+    for b in range(batches):
+        e = next(src)["embeddings"]
+        if b == batches - 1:
+            passes = keep_passes(dev.index.engine)
+        t0 = time.perf_counter()
+        keep = dev.filter(e)
+        dev_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = host.filter(e)
+        host_s += time.perf_counter() - t0
+        if not np.array_equal(keep, want):
+            raise AssertionError(f"8 (b): keep mask {b} differs from the "
+                                 "host soa twin's")
+        if dev._fifo[-len(e):] != host._fifo[-len(e):]:
+            raise AssertionError(f"8 (b): batch {b}: ids differ from the "
+                                 "host soa twin's")
+        labels = dev.index.labels()
+        if labels != host.index.labels():
+            raise AssertionError(f"8 (b): batch {b}: labels() differ from "
+                                 "the host soa twin's")
+    _sync(device)
+    entries = ops.entry_launch_counts()
+    if device != "cpu":
+        want = {"lsh_hash_resolve": batches, "bucket_insert_pass": batches}
+        got = {k: entries[k] for k in want}
+        if got != want:
+            raise AssertionError(f"8 (b): kernel entries {got}, expected "
+                                 f"{want}")
+    check = pass_check(passes, dev.index.engine, card, "8 (b)")
+    return {"batches": batches, "batch": CURATION_BATCH, **CURATION,
+            "seen": dev.n_seen, "kept": dev.n_kept,
+            "window_points": len(dev.index),
+            "clusters": len(set(labels.values()) - {NOISE}),
+            "noise_points": sum(v == NOISE for v in labels.values()),
+            "device_ms_per_batch": dev_s / batches * 1e3,
+            "host_soa_ms_per_batch": host_s / batches * 1e3,
+            "entry_launches": {k: entries[k] for k in MAIN_ENTRIES},
+            "masks_ids_labels_equal": True, "pass_check": check}
+
+
+@contextlib.contextmanager
+def attention_swapped(wrap):
+    """Within the block the model's attention is ``wrap(ops.attention)``;
+    ``ops.attention`` again after it."""
+    from repro_torch.kernels import ops
+
+    fn = ops.attention
+    ops.attention = wrap(fn)
+    try:
+        yield
+    finally:
+        ops.attention = fn
+
+
+def plain_attention():
+    """Within the block the model's attention runs the plain version
+    (``impl="ref"``) on any device; the kernel again after it."""
+    return attention_swapped(lambda fn: functools.partial(fn, impl="ref"))
+
+
+def planted_fault(kind: str):
+    """Within the block the model's attention is the kernel's with a
+    planted fault the size of one tile (``FAULT_TILE`` rows or keys):
+    ``"rows"`` zeroes every head's last query tile; ``"keys"`` drops the
+    first key tile from the last query tile's view (a sliding window of
+    seq - FAULT_TILE; at most half the sequence on short ones)."""
+    import torch
+
+    def rows(fn):
+        def attend(q, k, v, **kw):
+            out = fn(q, k, v, **kw)
+            keep = torch.ones((out.shape[-2], 1), dtype=out.dtype,
+                              device=out.device)
+            keep[-FAULT_TILE:] = 0
+            return out * keep
+        return attend
+
+    def keys(fn):
+        def attend(q, k, v, **kw):
+            s = q.shape[-2]
+            return fn(q, k, v, **{**kw, "window": max(s - FAULT_TILE,
+                                                      s // 2)})
+        return attend
+    return attention_swapped({"rows": rows, "keys": keys}[kind])
+
+
+def step_one(model, params, batch) -> dict:
+    """One forward and backward at ``params`` on ``batch`` with the
+    model's attention as it stands: the loss, the global gradient norm,
+    and which leaves (in ``tree_leaves`` order) got a gradient that is
+    not finite or is zero everywhere."""
+    import torch
+
+    from repro_torch.optim.adamw import global_norm, tree_leaves, tree_map
+
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = model.loss(live, batch)
+    loss.backward()
+    grads = [p.grad for p in tree_leaves(live)]
+    sound = torch.stack([torch.isfinite(g).all() & (g != 0).any()
+                         for g in grads]).cpu()
+    return {"loss": float(loss.detach()),
+            "grad_norm": float(global_norm(grads)),
+            "leaves": len(grads),
+            "bad_leaves": [i for i, ok in enumerate(sound) if not ok]}
+
+
+def rel_errs(got: dict, want: dict) -> dict:
+    return {f"{k}_rel_err": abs(got[k] - want[k]) / abs(want[k])
+            for k in ("loss", "grad_norm")}
+
+
+def train_sizes(device: str) -> dict:
+    """Phase 8 (c)'s and (d)'s sizes: on the card granite-20b at its
+    published widths with depth cut to ``TRAIN_LAYERS``; on the CPU
+    (tests) its smoke config and short sequences."""
+    if device == "cpu":
+        return {"smoke": True, "batch": 2, "seq": 32, "steps": 4,
+                "protocol": ["--smoke", "--batch", "4", "--seq", "32"],
+                "curation_batches": 40}
+    return {"smoke": False, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": TRAIN_STEPS, "protocol": ["--preset", "100m"],
+            "curation_batches": CURATION_BATCHES}
+
+
+def train_config(smoke: bool):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(TRAIN_ARCH)
+    if smoke:
+        return cfg.smoke()
+    return dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+
+
+def first_batch(cfg, args) -> dict:
+    """The first batch ``train`` takes: the same stream, curation and
+    pipeline, built again."""
+    from repro_torch.data.pipeline import (CurationFilter, Pipeline,
+                                           SyntheticTokenStream)
+
+    src = SyntheticTokenStream(cfg.vocab_size, args.seq, args.batch, seed=1)
+    pipe = Pipeline(iter(src), curation=CurationFilter(
+        d=src.embed_dim, k=8, t=8, eps=0.6, policy=args.curation,
+        window=20_000))
+    batch = next(pipe)
+    pipe.close()
+    return batch
+
+
+def train_path(device: str, directory) -> dict:
+    """8 (c): ``launch.train.train`` at ``TRAIN_ARCH``'s widths, depth cut,
+    ``--batch 8 --seq 1024 --curation balance`` for ``TRAIN_STEPS``
+    steps, from weights drawn from ``SEED``.  Step 1's loss and gradient
+    norm are held against the same step with the plain attention; in a
+    step-1 pass of its own with the kernel every parameter must get a
+    finite, nonzero gradient; two more passes read what a planted fault
+    does to step 1 (``planted_fault``); flash launches must be layers x 2
+    (the remat recompute) a step, on the tensor-core route; then one more
+    step under the profiler."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as trainer
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.training import make_train_step
+
+    sz = train_sizes(device)
+    on_card = device != "cpu"
+    cfg = train_config(sz["smoke"])
+    args = trainer.parse_args([
+        "--arch", TRAIN_ARCH, "--batch", str(sz["batch"]), "--seq",
+        str(sz["seq"]), "--curation", "balance", "--steps",
+        str(sz["steps"]), "--device", device, "--ckpt-dir", str(directory),
+        "--ckpt-every", str(10**9)])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    b0 = first_batch(cfg, args)
+    tb = {k: torch.from_numpy(b0[k]).to(device, torch.long)
+          for k in ("tokens", "labels")}
+
+    # step 1 with the plain attention, with the kernel (every leaf's
+    # gradient finite and nonzero), and with each planted fault
+    with plain_attention():
+        ref = step_one(model, params, tb)
+    kern = step_one(model, params, tb)
+    if kern["bad_leaves"]:
+        raise AssertionError(f"8 (c): parameter leaves {kern['bad_leaves']}"
+                             " (in tree_leaves order) got no finite "
+                             "nonzero gradient")
+    faults = {}
+    for kind in ("rows", "keys"):
+        with planted_fault(kind):
+            faults[kind] = rel_errs(step_one(model, params, tb), ref)
+        if (faults[kind]["loss_rel_err"] <= TRAIN_LOSS_RTOL
+                and faults[kind]["grad_norm_rel_err"] <= TRAIN_GNORM_RTOL):
+            raise AssertionError(f"8 (c): step 1 with a planted fault "
+                                 f"({kind}) is within the bounds: "
+                                 f"{faults[kind]}")
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_counts()
+    steps = trainer.train(cfg, args, params=params)
+    _sync(device)
+    launches = ops.launch_counts()["flash_attention"]
+    tc = ops.entry_launch_counts()["flash_attention_sm90"]
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    want = sz["steps"] * cfg.n_layers * (2 if cfg.remat else 1)
+    if on_card and (launches != want or tc != want):
+        raise AssertionError(f"8 (c): flash_attention launched {launches} "
+                             f"times ({tc} on the tensor cores) in "
+                             f"{sz['steps']} steps, expected {want}")
+    losses = [m["loss"] for m in steps]
+    err = rel_errs(steps[0], ref)
+    if (err["loss_rel_err"] > TRAIN_LOSS_RTOL
+            or err["grad_norm_rel_err"] > TRAIN_GNORM_RTOL):
+        raise AssertionError(
+            f"8 (c): step 1 differs from the plain attention's: loss "
+            f"{losses[0]} vs {ref['loss']} (rel {err['loss_rel_err']}, tol "
+            f"{TRAIN_LOSS_RTOL}), grad norm {steps[0]['grad_norm']} vs "
+            f"{ref['grad_norm']} (rel {err['grad_norm_rel_err']}, tol "
+            f"{TRAIN_GNORM_RTOL})")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"8 (c): losses {losses}")
+    step_s = [m["seconds"] for m in steps]
+    timed = step_s[2:] or step_s
+    tokens = sz["batch"] * sz["seq"]
+    med = float(np.median(timed))
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+           "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+           "d_ff": cfg.d_ff, "vocab": cfg.padded_vocab, "dtype": cfg.dtype,
+           "param_dtype": cfg.param_dtype, "remat": cfg.remat,
+           "params": n_params, "init_s": init_s, "batch": sz["batch"],
+           "seq": sz["seq"], "steps": sz["steps"], "losses": losses,
+           "grad_norms": [m["grad_norm"] for m in steps], "step_s": step_s,
+           "step_ms_median_3_on": med * 1e3, "tokens_per_s": tokens / med,
+           "model_tflops_6nd": 6 * n_params * tokens / med / 1e12,
+           "peak_bytes": peak, "flash_launches": launches,
+           "flash_sm90_launches": tc,
+           "flash_launches_per_step": launches / sz["steps"],
+           "step1": {"loss": losses[0], "ref_loss": ref["loss"],
+                     "loss_tol": TRAIN_LOSS_RTOL,
+                     "grad_norm": steps[0]["grad_norm"],
+                     "ref_grad_norm": ref["grad_norm"],
+                     "grad_norm_tol": TRAIN_GNORM_RTOL, **err,
+                     "kernel_pass": rel_errs(kern, ref),
+                     "planted_faults": faults},
+           "grads_finite_nonzero": kern["leaves"]}
+
+    # one more step under the profiler, with a fresh optimizer
+    if on_card:
+        opt = AdamW(lr=warmup_cosine(args.lr, 20, 100))
+        state = opt.init(params)
+        step_fn = make_train_step(model, opt, grad_accum=1)
+        step_fn(params, state, tb)
+        _sync(device)
+        wall, evs = device_events(lambda: step_fn(params, state, tb))
+        out["profile_step"] = _top_ops(evs, wall)
+        del state, step_fn
+    del params
+    return out
+
+
+def train_protocol(device: str, directory) -> dict:
+    """8 (d): the reference trainer's own test protocol through
+    ``launch.train.main``: 30 steps at ``--lr 1e-2`` with a checkpoint
+    every 10, then ``--resume`` to 32; the loss must fall (mean of the
+    last 5 below the mean of the first 3) and the resume take 2 steps."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as trainer
+
+    sz = train_sizes(device)
+    base = ["--arch", TRAIN_ARCH, *sz["protocol"], "--lr", "1e-2",
+            "--ckpt-every", "10", "--ckpt-dir", str(directory), "--device",
+            device]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = trainer.main([*base, "--steps", "30"])
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    losses2 = trainer.main([*base, "--steps", "32", "--resume"])
+    resume_s = time.perf_counter() - t0
+    _sync(device)
+    launches = ops.launch_counts()["flash_attention"]
+    if not np.mean(losses[-5:]) < np.mean(losses[:3]):
+        raise AssertionError(f"8 (d): loss did not fall: {losses}")
+    if len(losses2) != 2:
+        raise AssertionError(f"8 (d): the resumed run took {len(losses2)} "
+                             "steps, expected 2")
+    cfg = trainer.config_of(trainer.parse_args(base))
+    want = 32 * cfg.n_layers * (2 if cfg.remat else 1)
+    if device != "cpu" and launches != want:
+        raise AssertionError(f"8 (d): flash_attention launched {launches} "
+                             f"times, expected {want}")
+    ckpt = Path(directory) / cfg.name
+    return {"config": sz["protocol"], "params": cfg.n_params(),
+            "losses": losses, "resumed_losses": losses2,
+            "first_3_mean": float(np.mean(losses[:3])),
+            "last_5_mean": float(np.mean(losses[-5:])),
+            "run_s": first_s, "resume_run_s": resume_s,
+            "flash_launches": launches,
+            "checkpoints": sorted(p.name for p in ckpt.glob("step_*")),
+            "checkpoint_bytes": sum(f.stat().st_size
+                                    for f in ckpt.rglob("*") if f.is_file())}
+
+
+def flash_at_train_shape(device: str, card: str) -> dict:
+    """The flash kernel at the trainer's attention shape (8, 48, 1,024,
+    128 with one kv head) against its plain version (bf16 within one ulp,
+    f32 within 2e-5), timed beside its plain version, SDPA and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    cfg = train_config(False)
+    b, hq, hkv, s, dh = (TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads,
+                         TRAIN_SEQ, cfg.resolved_head_dim)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    q32 = torch.randn((b, hq, s, dh), generator=g, device=device)
+    k32 = torch.randn((b, hkv, s, dh), generator=g, device=device)
+    v32 = torch.randn((b, hkv, s, dh), generator=g, device=device)
+    e32, e16 = flash_check(q32, k32, v32, None)
+    q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
+    bound_ms, bound_by, *_ = attention_bound(b, hq, hkv, s, s, dh, None, 2)
+    return {"shape": [b, hq, s, dh], "kv_heads": hkv, "window": None,
+            "max_abs_err": e16, "max_abs_err_f32": e32,
+            "ms": time_ms(lambda: ops.attention(q, k, v), reps=10,
+                          warmup=2),
+            "plain_ms": time_ms(lambda: ops.attention(q, k, v, impl="ref"),
+                                reps=3, warmup=1),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), reps=10,
+                warmup=2),
+            "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+
+
+def run_train_phase(n_points: int, device: str, kept: dict,
+                    card: str) -> dict:
+    """Phase 8, (a) to (d), each in a temporary directory of its own."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        out["a"] = index_checkpoint_path(n_points, device, kept, d)
+        out["a"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["b"] = curation_path(device, train_sizes(device)["curation_batches"],
+                             card)
+    out["b"]["wall_s"] = time.perf_counter() - t0
+    gc.collect()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        out["c"] = train_path(device, d)
+        out["c"]["wall_s"] = time.perf_counter() - t0
+    gc.collect()
+    if device != "cpu":
+        import torch
+
+        torch.cuda.empty_cache()
+        out["c"]["flash_at_train_shape"] = flash_at_train_shape(device, card)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        out["d"] = train_protocol(device, d)
+        out["d"]["wall_s"] = time.perf_counter() - t0
+    out["card"] = card
+    return out
+
+
+# ---------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--points", type=int, default=FULL_POINTS,
@@ -3632,7 +4190,6 @@ def main(argv=None) -> int:
           f"{json.dumps(sc['counters'])}; phase {sc['wall_s']:.1f} s  "
           f"[{card}]", flush=True)
     print("sharded_path " + json.dumps(sharded), flush=True)
-    del kept
     gc.collect()
 
     # 4. baselines path
@@ -3705,6 +4262,73 @@ def main(argv=None) -> int:
     window["runtime_calls"] = runtime_call_study(last["restored"])
     window["card"] = card
     print("profile " + json.dumps(window), flush=True)
+    del last, window
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. training path: (a) phase 3's index through save_index /
+    #    restore_index on the card, (b) the trainer's curation on the
+    #    card, (c) the trainer at full width, (d) its own protocol
+    tr = run_train_phase(args.points, "cuda", kept, card)
+    del kept
+    ta, tb, tc, td = tr["a"], tr["b"], tr["c"], tr["d"]
+    print(f"train (a): soa-device index saved after batch "
+          f"{ta['saved_after_batch']} ({ta['bytes']} bytes, save "
+          f"{ta['save_s']:.3f} s, restore onto the card "
+          f"{ta['restore_s']:.3f} s), then {ta['restored_insert_batches']}"
+          f" insert and {ta['restored_delete_batches']} delete batches "
+          f"equal to phase 3; launches {json.dumps(ta['entry_launches'])};"
+          f" part {ta['wall_s']:.1f} s  [{card}]", flush=True)
+    print(f"train (b): curation on soa-device beside host soa, "
+          f"{tb['batches']} batches of {tb['batch']}: masks, ids and "
+          f"labels() equal every batch ({tb['clusters']} clusters, "
+          f"{tb['noise_points']} noise points at the end), kept "
+          f"{tb['kept']}/{tb['seen']}, {tb['device_ms_per_batch']:.3f} / "
+          f"{tb['host_soa_ms_per_batch']:.3f} ms a batch; launches "
+          f"{json.dumps(tb['entry_launches'])}; part {tb['wall_s']:.1f} s"
+          f"  [{card}]", flush=True)
+    ts = tc["flash_at_train_shape"]
+    print(f"train (c): {tc['arch']} x {tc['n_layers']} layers, "
+          f"{tc['params']} parameters, batch {tc['batch']} x "
+          f"{tc['seq']}: step {tc['step_ms_median_3_on']:.1f} ms (median "
+          f"of steps 3-{tc['steps']}), {tc['tokens_per_s']:.1f} tokens/s, "
+          f"peak {tc['peak_bytes'] / 1e9:.2f} GB, device busy "
+          f"{tc['profile_step']['device_busy_share']:.4f} of a step; loss "
+          f"{tc['losses'][0]:.4f} -> {tc['losses'][-1]:.4f}; step 1 vs "
+          f"plain attention: loss rel {tc['step1']['loss_rel_err']:.2e}, "
+          f"grad norm rel {tc['step1']['grad_norm_rel_err']:.2e} (bounds "
+          f"{TRAIN_LOSS_RTOL:.0e} / {TRAIN_GNORM_RTOL:.0e}; planted faults "
+          + ", ".join(f"{kind} {e['loss_rel_err']:.2e} / "
+                      f"{e['grad_norm_rel_err']:.2e}" for kind, e in
+                      tc["step1"]["planted_faults"].items())
+          + f"); flash "
+          f"launches {tc['flash_launches']} ({tc['flash_sm90_launches']} "
+          f"sm90); at {ts['shape']}: {ts['ms']:.4f} ms, plain "
+          f"{ts['plain_ms']:.3f}, SDPA {ts['library_ms']:.4f}, bound "
+          f"{ts['bound_ms']:.4f} ms; part {tc['wall_s']:.1f} s  [{card}]",
+          flush=True)
+    print(f"train (d): {' '.join(td['config'])}, 30 steps at lr 1e-2: "
+          f"loss {td['first_3_mean']:.4f} (first 3) -> "
+          f"{td['last_5_mean']:.4f} (last 5); resumed for "
+          f"{len(td['resumed_losses'])} steps; checkpoints "
+          f"{td['checkpoints']} ({td['checkpoint_bytes']} bytes); part "
+          f"{td['wall_s']:.1f} s  [{card}]", flush=True)
+    print("train_path " + json.dumps(tr), flush=True)
+    for k in kernels:
+        if k["name"] in MAIN_ENTRIES:
+            k["restored_index_launches"] = ta["entry_launches"][k["name"]]
+            k["curation_launches"] = tb["entry_launches"][k["name"]]
+            cur = tb["pass_check"]
+            k["curation_check"] = {
+                "rows": cur["rows"],
+                "max_abs_err": cur[f"{k['name']}_max_abs_err"],
+                "ms": cur[f"{k['name']}_ms"],
+                "plain_ms": cur[f"{k['name']}_plain_ms"]}
+        if k["name"] == "flash_attention":
+            k["train_launches"] = tc["flash_launches"]
+            k["train_steps"] = tc["steps"]
+            k["train_protocol_launches"] = td["flash_launches"]
+            k["train_shape"] = ts
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

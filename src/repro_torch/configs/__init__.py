@@ -35,7 +35,7 @@ ARCH_IDS = (*_MODULES, *UNPORTED)
 def unported_family(family: str) -> NotImplementedError:
     return NotImplementedError(
         f"the {family!r} family is not ported yet (ROADMAP.md Queue 1 "
-        "item 11); the port runs dense models")
+        "item 4.2); the port runs dense models")
 
 
 def get_config(arch_id: str) -> ArchConfig:

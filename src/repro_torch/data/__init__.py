@@ -1,1 +1,1 @@
-from .synthetic import blobs, DATASET_SPECS  # noqa: F401
+from .synthetic import blobs, dataset_standin, DATASET_SPECS  # noqa: F401

@@ -21,6 +21,12 @@ Both count as launches of ``flash_attention``; ``ops.
 entry_launch_counts()`` tells the routes apart.  Held against
 :func:`repro_torch.kernels.ref.attention` to the reference tests'
 tolerances (another f32 summation order).
+
+:class:`FlashAttention` puts the kernel under autograd, for training:
+its forward is the kernel on the card (the plain version where
+``ops.attention`` runs that), and its backward is the gradient of the
+plain version, in plain PyTorch — the reference has no backward kernel
+either; it differentiates its plain ``chunked_attention`` through XLA.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from . import ref as _ref
 from ._checks import check_cuda
 
 _I32 = 2**31 - 1
@@ -120,3 +127,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   int(q_offset), float(scale),
                   torch.cuda.current_stream(q.device).cuda_stream)
     return out if p.dh_pad == dh else out[..., :dh].contiguous()
+
+
+#: bytes of f32 scores the backward recomputes at once (batch rows are
+#: taken in chunks that fit)
+_BWD_SCORE_BYTES = 1 << 28
+
+
+def attention_vjp(q, k, v, dout, *, causal: bool, window: Optional[int],
+                  q_offset: int, scale: Optional[float], needs=(1, 1, 1)):
+    """(dq, dk, dv) of :func:`repro_torch.kernels.ref.attention` at (q,
+    k, v) against ``dout``, by autograd through it, a chunk of batch rows
+    at a time (rows are independent); None where ``needs`` is false."""
+    b, hq, sq, _ = q.shape
+    per_row = hq * sq * max(k.shape[2], 1) * 4
+    step = max(1, _BWD_SCORE_BYTES // max(per_row, 1))
+    grads = [[], [], []]
+    for lo in range(0, b, step):
+        ins = [t[lo:lo + step].detach().requires_grad_(bool(n))
+               for t, n in zip((q, k, v), needs)]
+        with torch.enable_grad():
+            out = _ref.attention(*ins, causal=causal, window=window,
+                                 q_offset=q_offset, scale=scale)
+            want = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(out, want, dout[lo:lo + step]))
+        for i, t in enumerate(ins):
+            grads[i].append(next(got) if t.requires_grad else None)
+    return tuple(torch.cat(g) if n else None for g, n in zip(grads, needs))
+
+
+class FlashAttention(torch.autograd.Function):
+    """GQA attention with a gradient: forward through the kernel when
+    ``on_card`` (else the plain version), backward through
+    :func:`attention_vjp`.  Saves q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, scale, on_card):
+        opts = {"causal": causal, "window": window, "q_offset": q_offset,
+                "scale": scale}
+        ctx.opts = opts
+        ctx.save_for_backward(q, k, v)
+        if on_card:
+            return flash_attention(q, k, v, **opts)
+        return _ref.attention(q, k, v, **opts)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_vjp(q, k, v, dout.contiguous(), **ctx.opts,
+                                   needs=ctx.needs_input_grad[:3])
+        return dq, dk, dv, None, None, None, None, None

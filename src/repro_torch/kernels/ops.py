@@ -103,8 +103,17 @@ def eps_neighbor_counts(x, *, eps: float, impl: Optional[str] = None):
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               q_offset: int = 0, scale: Optional[float] = None,
               impl: Optional[str] = None):
-    """GQA attention, q (b, hq, sq, dh), k and v (b, hkv, skv, dh)."""
-    if _on_card(q, impl):
+    """GQA attention, q (b, hq, sq, dh), k and v (b, hkv, skv, dh).
+
+    When gradients are being taken for q, k or v, the call goes through
+    :class:`.flash_attention.FlashAttention`: the same forward (the
+    kernel on the card, counted), and the plain version's gradient."""
+    on_card = _on_card(q, impl)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _fa.FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                        scale, on_card)
+    if on_card:
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, scale=scale)
     return _ref.attention(q, k, v, causal=causal, window=window,

@@ -311,9 +311,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The logits einsum runs in the inputs' dtype and is then cast to f32
     (for bf16 inputs the logits are rounded to bf16 first, as in the
-    reference); softmax is f32; the probabilities are cast back to v's
-    dtype for the second einsum.  A row whose keys are all masked gets
-    the mean of v, as in the reference (the kernel writes 0 there).
+    reference; f64 inputs stay f64); softmax is f32 (f64); the
+    probabilities are cast back to v's dtype for the second einsum.  A
+    row whose keys are all masked gets the mean of v, as in the
+    reference (the kernel writes 0 there).
     """
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -322,7 +323,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = 1.0 / (dh ** 0.5)
     kk = k.repeat_interleave(group, dim=1)
     vv = v.repeat_interleave(group, dim=1)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q, kk).to(torch.float32) \
+    # f32 scores (f64 inputs keep f64, so that gradcheck can probe it)
+    score_dtype = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, kk).to(score_dtype) \
         * scale
     q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
     k_pos = torch.arange(skv, device=q.device)[None, :]

@@ -1,1 +1,1 @@
-"""repro_torch.launch — command-line entry points (``serve``)."""
+"""repro_torch.launch — command-line entry points (``serve``, ``train``)."""

@@ -2,9 +2,10 @@
 
 Mirror of ``repro.models.registry`` for the dense family.  A model is
 built for one device — the card unless the caller asks for the CPU — and
-its ``init`` and ``decode_init`` allocate there.  ``loss`` comes with
-the training slice (``ROADMAP.md`` Queue 1 item 11); the reference's
-``mesh`` arguments and sharding axes have no counterpart on one card.
+its ``init`` and ``decode_init`` allocate there.  ``loss`` is the
+reference's ``lm_loss`` (the training path: ``repro_torch.training``);
+the reference's ``mesh`` arguments and sharding axes have no counterpart
+on one card.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ class ModelAPI:
     cfg: Any
     device: torch.device
     init: Callable         # (seed or torch.Generator) -> params
+    loss: Callable         # (params, batch) -> (loss, metrics)
     forward: Callable      # (params, batch) -> logits  (prefill)
     decode_init: Callable  # (batch, kv_len) -> caches
     decode_step: Callable  # (params, caches, token, pos, active=None)
@@ -49,6 +51,7 @@ def build_model(cfg, device: Optional[Union[str, torch.device]] = None
 
     return ModelAPI(
         cfg=cfg, device=dev, init=init, forward=forward,
+        loss=lambda params, batch: T.lm_loss(params, cfg, batch),
         decode_init=lambda batch, kv_len: T.init_decode_state(
             cfg, batch, kv_len, dev),
         decode_step=lambda params, caches, token, pos, active=None:

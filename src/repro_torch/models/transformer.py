@@ -9,9 +9,17 @@ each layer its own window and RoPE theta, and window layers get
 window-sized decode caches.  Each layer's full-sequence attention
 launches the flash-attention kernel once (on the card).
 
+Training: :func:`lm_loss` is the reference's mean next-token cross
+entropy (vocabulary padding masked, labels < 0 ignored; the dense
+family's MoE ``aux`` is 0).  When gradients are being taken and
+``cfg.remat`` is set, each layer runs under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, as the
+reference runs its layer scan under ``jax.checkpoint``: the backward
+recomputes the layer, so the flash kernel launches twice per layer and
+step.  Prefill and decode take no gradient and are unchanged.
+
 The moe, ssm, hybrid, vlm and audio families raise
-``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 11), as do
-``lm_loss`` and training.
+``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 4.2).
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import unported_family
 from . import attention as A
@@ -92,13 +101,31 @@ def _layer_fwd(lp, x, cfg, meta, compute_dtype):
     return x + L.swiglu(lp["mlp"], h, compute_dtype)
 
 
+def _takes_grad(lp, x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        t.requires_grad for t in _tensors(lp)))
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
 def lm_forward(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (b, s) int -> logits (b, s, padded_vocab) in ``cfg.dtype``."""
     _check_family(cfg)
     compute_dtype = L.dtype_of(cfg.dtype)
     x = L.embed(params["embed"], tokens, compute_dtype)
     for i, lp in enumerate(params["layers"]):
-        x = _layer_fwd(lp, x, cfg, _layer_meta_py(cfg, i), compute_dtype)
+        meta = _layer_meta_py(cfg, i)
+        if cfg.remat and _takes_grad(lp, x):
+            x = checkpoint(_layer_fwd, lp, x, cfg, meta, compute_dtype,
+                           use_reentrant=False)
+        else:
+            x = _layer_fwd(lp, x, cfg, meta, compute_dtype)
     x = L.rms_norm(x, params["ln_f"]["w"], cfg.norm_eps)
     return _head(params, cfg, x, compute_dtype)
 
@@ -107,6 +134,37 @@ def _head(params, cfg, x, compute_dtype):
     if cfg.tie_embeddings:
         return x @ params["embed"]["table"].to(compute_dtype).T
     return L.lm_head(params["head"], x, compute_dtype)
+
+
+def lm_loss(params, cfg, batch):
+    """Mean next-token CE over valid (label >= 0) positions + MoE aux
+    (0 here) -> (loss, {"ce", "aux", "tokens"}), f32 0-d tensors."""
+    logits = lm_forward(params, cfg, batch["tokens"])
+    ce, denom = _ce(logits, batch["labels"], cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    loss = ce / denom + 0.01 * aux
+    return loss, {"ce": ce / denom, "aux": aux, "tokens": denom}
+
+
+def _ce(logits, labels, cfg):
+    """(summed CE, valid-label count) in f32: the padded vocabulary's
+    logits masked to -1e30, each label's logit picked (0 for a label
+    past the padded vocabulary, as the reference's one-hot picks)."""
+    logits = logits.float()
+    vp = logits.shape[-1]
+    if vp > cfg.vocab_size:
+        iota = torch.arange(vp, device=logits.device)
+        logits = torch.where(iota < cfg.vocab_size, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    labels = labels.long()
+    inside = (labels >= 0) & (labels < vp)
+    picked = torch.where(
+        inside, logits.gather(-1, labels.clamp(0, vp - 1)[..., None])[..., 0],
+        0.0)
+    valid = labels >= 0
+    ce = torch.sum(torch.where(valid, lse - picked, 0.0))
+    denom = torch.clamp(torch.sum(valid), min=1).to(torch.float32)
+    return ce, denom
 
 
 # --------------------------------------------------------------------- #

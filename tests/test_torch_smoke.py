@@ -4,9 +4,10 @@ size with the kernels' plain versions (the port's ``soa-device`` on
 equal), so does its baselines path (the host baselines, then the
 eps-ball counts through ``ops`` on the CPU), so does its LM path
 (gemma3-27b's smoke config at the phase's depth: prefill, the attention
-checks, prefill vs decode, clustered serving), its attention bound
-counts the unmasked pairs, and the script itself refuses to run without
-a CUDA device."""
+checks, prefill vs decode, clustered serving), so does its training phase (index checkpoints,
+curation, the trainer and its protocol at granite-20b's smoke config),
+its attention bound counts the unmasked pairs, and the script itself
+refuses to run without a CUDA device."""
 
 import importlib.util
 from pathlib import Path
@@ -246,3 +247,95 @@ def test_approx_path_refuses_a_different_stream():
     kept = last.pop("host_stream")
     with pytest.raises(AssertionError, match="insert batches"):
         chip_smoke.run_approx_path(3000, "cpu", kept)
+
+
+def test_train_phase_runs_on_cpu(tmp_path):
+    """Phase 8 at a tiny size with the plain kernels: (a) phase 3's index
+    through save_index / restore_index, equal to phase 3 after it; (b)
+    curation on soa-device (CPU) beside host soa; (c) the trainer on
+    granite-20b's smoke config, step 1 equal to the plain attention's;
+    (d) the reference trainer's protocol at the smoke config."""
+    _metrics, last = chip_smoke.run_main_path(3000, "cpu")
+    kept = last.pop("host_stream")
+    tr = chip_smoke.run_train_phase(3000, "cpu", kept, "cpu")
+    a, b, c, d = tr["a"], tr["b"], tr["c"], tr["d"]
+    assert a["equal_to_phase_3"] and a["saved_after_batch"] == 1
+    assert a["restored_insert_batches"] == 2 and a["bytes"] > 0
+    assert a["files"] == ["manifest.json", "state.npz"]
+    assert b["masks_ids_labels_equal"] and b["seen"] == 40 * 8
+    assert b["clusters"] > 0
+    chk = b["pass_check"]
+    assert chk["rows"] == 8 and chk["t"] == 8
+    assert chk["lsh_hash_resolve_max_abs_err"] == 0
+    assert chk["bucket_insert_pass_max_abs_err"] == 0
+    assert c["n_layers"] == 2 and c["steps"] == 4 and len(c["losses"]) == 4
+    assert c["step1"]["loss_rel_err"] == 0.0  # the same plain attention
+    assert c["step1"]["kernel_pass"]["grad_norm_rel_err"] == 0.0
+    for kind in ("rows", "keys"):  # a planted fault moves the gradient
+        assert c["step1"]["planted_faults"][kind]["grad_norm_rel_err"] > 0
+    assert c["grads_finite_nonzero"] == 21
+    assert not c["flash_launches"]  # no kernel on the CPU
+    assert d["last_5_mean"] < d["first_3_mean"]
+    assert len(d["resumed_losses"]) == 2
+    assert d["checkpoints"] == ["step_00000020", "step_00000030"]
+
+
+def test_curation_phase_holds_the_device_index_not_only_the_mask(
+        monkeypatch):
+    """A device index whose cluster ids are off keeps the same masks (the
+    policy reads only cluster sizes): 8 (b) finds it in ``labels()``.
+    A wrong support count on the device changes the masks too."""
+    from repro_torch.api import NOISE
+    from repro_torch.api.backends import SoAIndex
+    from repro_torch.kernels import ops
+
+    labels = SoAIndex.labels
+
+    def renamed(self, ids=None):
+        got = labels(self, ids)
+        if not self.engine.use_device:
+            return got
+        return {i: v if v == NOISE else v + 10**6 for i, v in got.items()}
+    with monkeypatch.context() as m:
+        m.setattr(SoAIndex, "labels", renamed)
+        with pytest.raises(AssertionError,
+                           match=r"8 \(b\): batch \d+: labels\(\) differ"):
+            chip_smoke.curation_path("cpu", 40, "cpu")
+    fn = ops.bucket_insert_pass
+
+    def off_by_one(slots, sizes, *, k, impl=None, **kw):
+        out = fn(slots, sizes, k=k, impl=impl, **kw)
+        if impl != "ref":
+            out[-len(slots):] += 1
+        return out
+    monkeypatch.setattr(ops, "bucket_insert_pass", off_by_one)
+    with pytest.raises(AssertionError, match=r"8 \(b\): keep mask \d+"):
+        chip_smoke.curation_path("cpu", 40, "cpu")
+
+
+def test_index_checkpoint_phase_refuses_a_different_stream(tmp_path):
+    _metrics, last = chip_smoke.run_main_path(3000, "cpu")
+    kept = last.pop("host_stream")
+    bad = kept["insert_deltas"][2].copy()
+    bad[0, 2] = 10**6
+    kept["insert_deltas"][2] = bad
+    with pytest.raises(AssertionError, match="8 \\(a\\): insert 2"):
+        chip_smoke.index_checkpoint_path(3000, "cpu", kept, tmp_path)
+
+
+def test_train_phase_gates_step_one(tmp_path, monkeypatch):
+    """Step 1 is held against the plain attention's: a bound of -1 (no
+    difference allowed, not even none) fails the phase."""
+    monkeypatch.setattr(chip_smoke, "TRAIN_LOSS_RTOL", -1.0)
+    with pytest.raises(AssertionError, match="step 1 differs"):
+        chip_smoke.train_path("cpu", tmp_path)
+
+
+def test_plain_attention_swaps_the_model_attention():
+    from repro_torch.kernels import ops
+
+    fn = ops.attention
+    with chip_smoke.plain_attention():
+        assert ops.attention is not fn
+        assert ops.attention.keywords == {"impl": "ref"}
+    assert ops.attention is fn
