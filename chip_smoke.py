@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--points N]
 
-Phases (1-3, 3b-3e, 4-8), each of which raises on failure (exit code
+Phases (1-3, 3b-3e, 4-9), each of which raises on failure (exit code
 != 0):
 
 1. device  — print the card (``nvidia-smi`` name and power limit, torch's
@@ -106,12 +106,12 @@ Phases (1-3, 3b-3e, 4-8), each of which raises on failure (exit code
              coordinator's hash pass (span ``coord.route_and_key``)
              against the fan-out (span ``coord.fanout``), a batch,
              ``stats()`` and the top rows of ``python -m repro_torch.obs
-             report`` over the written trace; then the first 40 insert
+             report`` over the written trace; then the first 10 insert
              batches of the stream timed with the fan-out serial
              (``workers=0``) and on the pool, in turns (serial, pool,
              pool, serial).  (b) The same config with
              ``transport="process"``: four workers spawned with
-             ``--device cuda`` over the first 25 insert batches, each
+             ``--device cuda`` over the first 15 insert batches, each
              batch's deltas and the labels after them equal to (a)'s host
              run, every worker holding a GPU device file open, a snapshot
              restored on the local transport equal; round trips and
@@ -125,15 +125,16 @@ Phases (1-3, 3b-3e, 4-8), each of which raises on failure (exit code
              card with replicas byte-equal to their primaries; the
              ``failover.*`` counters are printed.  Every index is closed
              in a ``finally``; a worker alive after ``close()`` fails.
-4. baselines — the paper's Table-2 streaming protocol at its default
-             scale (``benchmarks/table2.py``, scale 0.1): blobs n=20,000,
-             d=10, 10 clusters, k=10, t=10, eps=0.75, batches of 1000
+4. baselines — the paper's Table-2 streaming protocol at half its
+             default scale (``benchmarks/table2.py`` at scale 0.1 has
+             20,000 points; the cut is printed): blobs n=10,000, d=10,
+             10 clusters, k=10, t=10, eps=0.75, batches of 1000
              with ``labels()`` after every batch, through the host
              backends ``dynamic`` (the table's headline row), ``naive``,
              ``emz-static`` and ``emz-fixed``; prints each one's seconds,
              ARI and NMI; snapshot + restore of all but ``emz-fixed``
              must give equal labels.  Then
-             the exact eps-ball counts of the final 20,000 points on the
+             the exact eps-ball counts of the final 10,000 points on the
              card (the ``eps_neighbor_counts`` kernel, which must
              launch), held bit-exact against its plain version; the rows
              where they differ from the host float64 counts of
@@ -187,7 +188,8 @@ Phases (1-3, 3b-3e, 4-8), each of which raises on failure (exit code
              to the path's, then with ids out of range and all-false and
              all-true masks, twice in a row, timed and profiled);
              ``eps_neighbor_counts`` at the
-             main path's points (200,000 x 10) and at 20,000 x 10, beside
+             main path's points (200,000 x 10) and at phase 4's (10,000 x
+             10), beside
              a blocked ``torch.matmul`` composite (TF32 off; several
              calls, so no library column), at covertype's width (blobs
              of 100,000 x 54 in 7 clusters, eps 1.0; its mean count is
@@ -224,6 +226,28 @@ Phases (1-3, 3b-3e, 4-8), each of which raises on failure (exit code
              (d) ``launch.train.main`` at the ``100m`` preset: 30 steps at
              lr 1e-2 with a checkpoint every 10, then ``--resume`` to 32;
              the loss falls and the resumed run takes 2 steps.
+9. families — the moe, vlm, ssm, hybrid and audio families at their
+             published widths (FAMILY_RUNS: mamba2-780m, hymba-1.5b,
+             granite-moe-1b-a400m, llava-next-mistral-7b at full depth,
+             dbrx-132b at 2 of 40 layers, whisper-small), f32 weights
+             from a seeded generator on the card, each freed before the
+             next: a bf16 ``forward`` of one sequence (finite logits of
+             the expected shape; flash launches equal to its attention
+             calls, all on the tensor-core route; wall time, peak
+             memory), the ``ServingEngine`` as in phase 5 (a freed slot
+             is reused: 8 requests on 4 slots); for mamba2 and hymba,
+             f32 prefill against teacher-forced decode over 600 tokens
+             (FAMILY_CHECK_TOL) and the first mixer's scan against its
+             recurrence within 2e-4; the device profile of one decode
+             step of mamba2 and granite-moe.  Then ``launch.serve.
+             main([])`` with its defaults (mamba2-780m at full width on
+             the card, every request served), and the flash kernel
+             against its plain version at the shapes these models give
+             it first (FLASH_FAMILY_SHAPES: head_dim 64 with GQA groups 2
+             and 5, head_dim 128 with groups 4 and 6, whisper's
+             non-causal encoder and its 448 x 1,500 cross attention),
+             timed beside its plain version, SDPA and the bound.  The
+             phase prints its wall time.
 
 The line before the last is one JSON object with a ``kernels`` list (all
 five kernels and the ``lsh_hash_resolve`` and fused
@@ -232,8 +256,9 @@ launches on the approx path; ``lsh_hash``'s entry also gives its
 launches on the dict path, and the two routes theirs on the sharded
 path, 3e (a), with their check at a shard's sub-batch, and on phase 8
 (a)'s restored index and (b)'s curation; ``flash_attention``'s its
-launches in 8 (c) and (d) and its check at the trainer's shape); the
-last line is ``{"ok": true, "device": {...}}``.
+launches in 8 (c) and (d) and its check at the trainer's shape, and its
+launches per forward of each arch of phase 9 with its checks at phase
+9's shapes); the last line is ``{"ok": true, "device": {...}}``.
 ``--points`` cuts the main, dict and approx streams only (the cut is
 printed);
 d, k, t, eps and the batch never change.
@@ -304,23 +329,31 @@ TIER_POINT = dict(n_stream=36000, window=24000, batch=1000, d=8,
                   n_clusters=8, cluster_std=0.5, k=256, t=10, eps=0.5,
                   data_seed=3)
 # Table 2 at its default scale: benchmarks/table2.py run(scale=0.1) on
-# blobs, with benchmarks/common.py stream_eval's protocol
+# blobs, with benchmarks/common.py stream_eval's protocol; phase 4 runs
+# it cut to half that scale, BASELINE_POINTS, to keep the script within
+# its time with the families phase (9) added (``naive`` recomputes on
+# every batch: ~100 s at 20,000 points on a slow host, ~1/8 of it at
+# 10,000); the cut is printed
 BASELINES = ("dynamic", "naive", "emz-static", "emz-fixed")
-BASELINE_POINTS = 20_000
+TABLE2_POINTS = 20_000
+BASELINE_POINTS = 10_000
 # the sharded path (phase 3e): four soa-device shards on a pool of four
-# threads over phase 3's stream (a), its first 40 insert batches timed
+# threads over phase 3's stream (a), its first 10 insert batches timed
 # with a serial and a pooled fan-out in turns; the same config as four
-# worker processes over its first 25 insert batches (b); two shards of a
+# worker processes over its first 15 insert batches (b); two shards of a
 # primary and a replica each over TCP at Table 2's scale, shard 0's
 # primary killed after batch 10 as benchmarks/serving_mix.py's chaos
-# does (c).  The 40 and 25 are cut from 100 and 50 to keep the script
-# within its time with the training phase (8) added
+# does (c).  The 10 and 15 are cut from 100 and 50 (then 40 and 25) to
+# keep the script within its time with phases 8 and 9 added
 SHARDS = 4
-PROCESS_BATCHES = 25
-FANOUT_BATCHES = 40
-# label() calls a batch in (a), each held against the host shards' (cut
-# from 32 for the same reason)
+PROCESS_BATCHES = 15
+FANOUT_BATCHES = 10
+# label() calls on every SHARDED_LABEL_EVERY-th insert batch of (a), each
+# held against the host shards', and labels() on every
+# SHARDED_LABELS_EVERY-th (cut from 32 calls on every batch and labels()
+# on every 10th, for the same reason; deltas stay compared every batch)
 SHARDED_LABEL_SAMPLE = 16
+SHARDED_LABEL_EVERY, SHARDED_LABELS_EVERY = 5, 40
 FAILOVER_KILL_AFTER = 10
 # shapes of the eps_neighbor_counts correctness sweep: n on the edges of
 # the kernel's 128-point tiles, 8193 (blocks start inside a row of tile
@@ -389,6 +422,49 @@ FLASH_SWEEP_TRAIN = (
 # each (PERF.md section 5 keeps the readings), and each planted fault
 # must break a bound; (d) the reference trainer's test protocol at the
 # trainer's "100m" preset
+# families phase (9): each arch of the moe, vlm, ssm, hybrid and audio
+# families at its published widths: (arch, layers or None for all, text
+# tokens of the bf16 prefill); llava adds its 576 patches to the text,
+# whisper's encoder takes 1,500 frames.  dbrx is cut from 40 layers to
+# 2: one layer's f32 weights are ~13 GB, so 40 would need ~520 GB.
+# llava is cut from 32 layers to 16 for the script's time: its serving
+# took 28 s of a 281 s phase on a slow host, at ~3 ms of host dispatch a
+# layer and decode step
+FAMILY_RUNS = (
+    ("mamba2-780m", None, 4096), ("hymba-1.5b", None, 4096),
+    ("granite-moe-1b-a400m", None, 4096),
+    ("llava-next-mistral-7b", 16, 2048), ("dbrx-132b", 2, 2048),
+    ("whisper-small", None, 448),
+)
+AUDIO_FRAMES = 1500            # whisper's 30 s encoder length (CROSS_LEN)
+# f32 prefill against teacher-forced decode, past two SSD chunks of 256,
+# within these tolerances: the reference's LM_TOL, except for the 48
+# layers of mamba2-780m.  There the chunked scan (prefill) and the
+# recurrence (decode) sum in different f32 orders: one mixer at full
+# width differs by 4.4e-5 on outputs up to 4.6 (within LM_TOL, and held
+# so below for each arch's first mixer), and the differences compound
+# over the 48 layers to 7.2e-4-1.1e-3 on logits up to 5.6 on an NVIDIA
+# H100 80GB HBM3 at 700 W, already from token 8 on and still 4.0e-4
+# with chunks of 16: not the cumsum's cancellation at a full chunk
+# (tools/ssm_decode_study.py measures it).  The 32 layers of hymba-1.5b
+# read 5.4e-5-5.7e-5
+FAMILY_CHECK_TOKENS = 600
+FAMILY_CHECK_TOL = {"mamba2-780m": 2e-3, "hymba-1.5b": LM_TOL}
+# the archs whose decode step is profiled
+FAMILY_PROFILE_ARCHS = ("mamba2-780m", "granite-moe-1b-a400m")
+# flash_attention at the shapes this phase gives it first: (tag, b, hq,
+# hkv, sq, skv, dh, causal); head_dim 64 with GQA groups 2 and 5, 128
+# with groups 4 (llava's 576 patches + 2,048 tokens) and 6 (dbrx's
+# 2,048), whisper's non-causal encoder and its cross attention (sq !=
+# skv)
+FLASH_FAMILY_SHAPES = (
+    ("granite-moe-1b-a400m", 1, 16, 8, 4096, 4096, 64, True),
+    ("hymba-1.5b", 1, 25, 5, 4096, 4096, 64, True),
+    ("llava-next-mistral-7b", 1, 32, 8, 2624, 2624, 128, True),
+    ("dbrx-132b", 1, 48, 8, 2048, 2048, 128, True),
+    ("whisper-small encoder", 1, 12, 12, 1500, 1500, 64, False),
+    ("whisper-small cross", 1, 12, 12, 448, 1500, 64, False),
+)
 INDEX_SAVE_AT = 100
 CURATION = dict(k=8, t=8, eps=0.6, policy="balance", window=20_000)
 CURATION_SEQ, CURATION_BATCH, CURATION_BATCHES = 64, 8, 400
@@ -1666,14 +1742,16 @@ def run_sharded_local(X, kept: dict, device: str, card: str):
                                      "from the host sharded run's")
             if b < PROCESS_BATCHES:
                 keep["deltas"].append(deltas)
-            sample = [int(i) for i in rng.choice(
-                ids, size=SHARDED_LABEL_SAMPLE, replace=False)]
-            t0 = time.perf_counter()
-            got = [dev.label(i) for i in sample]
-            label_s += time.perf_counter() - t0
-            if got != [host.label(i) for i in sample]:
-                raise AssertionError(f"3e (a) batch {b}: label() differs")
-            if b % 10 == 9:
+            if b % SHARDED_LABEL_EVERY == 0:
+                sample = [int(i) for i in rng.choice(
+                    ids, size=SHARDED_LABEL_SAMPLE, replace=False)]
+                t0 = time.perf_counter()
+                got = [dev.label(i) for i in sample]
+                label_s += time.perf_counter() - t0
+                if got != [host.label(i) for i in sample]:
+                    raise AssertionError(f"3e (a) batch {b}: label() "
+                                         "differs")
+            if b % SHARDED_LABELS_EVERY == SHARDED_LABELS_EVERY - 1:
                 t0 = time.perf_counter()
                 lab = dev.labels()
                 labels_s += time.perf_counter() - t0
@@ -1786,8 +1864,10 @@ def run_sharded_local(X, kept: dict, device: str, card: str):
         "insert_pts_per_s": n_points / ins_s,
         "delete_pts_per_s": n_del / del_s, "insert_s": ins_s,
         "delete_s": del_s, "labels_s": labels_s,
-        "labels_s_per_call": labels_s / (n_batches // 10 or 1),
-        "label_us_per_call": label_s / (SHARDED_LABEL_SAMPLE * n_batches)
+        "labels_s_per_call": labels_s
+        / (n_batches // SHARDED_LABELS_EVERY or 1),
+        "label_us_per_call": label_s / (
+            SHARDED_LABEL_SAMPLE * -(-n_batches // SHARDED_LABEL_EVERY))
         * 1e6,
         "route_and_key_ms_per_batch": route_s / n_batches * 1e3,
         "fanout_ms_per_batch": fan_s / n_batches * 1e3,
@@ -1905,9 +1985,9 @@ def run_sharded_failover(device: str, card: str) -> dict:
     from repro_torch.api import build_index
     from repro_torch.data import blobs
 
-    X, _ = blobs(n=BASELINE_POINTS, d=D, n_clusters=10, seed=SEED)
+    X, _ = blobs(n=TABLE2_POINTS, d=D, n_clusters=10, seed=SEED)
     victims = np.random.default_rng(SEED + 3).permutation(
-        BASELINE_POINTS)[:int(BASELINE_POINTS * DELETE_FRACTION)]
+        TABLE2_POINTS)[:int(TABLE2_POINTS * DELETE_FRACTION)]
     cfg = sharded_cfg("soa-device", shards=2, workers=2, transport="tcp",
                       replicas=1)
     oracle = build_index(sharded_cfg("soa", shards=2, workers=0,
@@ -1921,7 +2001,7 @@ def run_sharded_failover(device: str, card: str) -> dict:
                 for mem in lane._members]
         lane = ix.clients[0]
         killed = None
-        n_batches = BASELINE_POINTS // BATCH
+        n_batches = TABLE2_POINTS // BATCH
         checks = 0
         for b in range(n_batches):
             Xb = X[b * BATCH:(b + 1) * BATCH]
@@ -1972,7 +2052,7 @@ def run_sharded_failover(device: str, card: str) -> dict:
     alive = [p for p in pids if _alive(p)]
     if alive:
         raise AssertionError(f"3e (c): workers {alive} outlived close()")
-    return {"points": BASELINE_POINTS, "deleted": len(victims),
+    return {"points": TABLE2_POINTS, "deleted": len(victims),
             "killed_after_batch": FAILOVER_KILL_AFTER,
             "killed_pid": killed.pid, "spawn_s": spawn_s,
             "label_checks": checks + 1, "counters": failover,
@@ -2021,7 +2101,7 @@ def run_baselines(n_points: int, device: str):
                  seed=SEED)
     cfg = ClusterConfig(d=D, k=K, t=T, eps=EPS, seed=SEED)
     ops.reset_launch_counts()
-    out = {"points": n_points, "cut": n_points != BASELINE_POINTS,
+    out = {"points": n_points, "cut": n_points != TABLE2_POINTS,
            "d": D, "k": K, "t": T, "eps": EPS, "batch": BATCH}
     for backend in BASELINES:
         index = build_index(cfg.replace(backend=backend))
@@ -2428,7 +2508,8 @@ def check_kernels(last, launches, card: str, x_base, build, masked):
                              f"outside [{lo}, {hi}]")
     sweep_err, sweep_cases = eps_sweep(dev)
     extra = {}
-    for tag, row in (("_20k", small), ("_100k_54", wide)):
+    small_tag = f"_{len(x_base) // 1000}k"
+    for tag, row in ((small_tag, small), ("_100k_54", wide)):
         extra.update({f"{k}{tag}": v for k, v in row.items()
                       if k not in ("bytes", "ops", "ops_all_pairs")})
         extra[f"bound_ms{tag}"] = bound(row["bytes"], row["ops"])[0]
@@ -2441,8 +2522,8 @@ def check_kernels(last, launches, card: str, x_base, build, masked):
            composite_rows_differing=big["composite_rows_differing"],
            bound_share=bound(big["bytes"], big["ops"])[0] / big["ms"],
            bound_ms_all_pairs=bound(big["bytes"], big["ops_all_pairs"])[0],
-           bound_ms_all_pairs_20k=bound(small["bytes"],
-                                        small["ops_all_pairs"])[0],
+           **{f"bound_ms_all_pairs{small_tag}": bound(
+               small["bytes"], small["ops_all_pairs"])[0]},
            ptxas=build["eps_ptxas"], sweep_cases=sweep_cases,
            sweep_max_abs_err=sweep_err, **extra)
     print(f"eps_neighbor_counts: composite, not one call (blocked "
@@ -3115,12 +3196,15 @@ def unmasked_pairs(sq: int, skv: int, window, q_offset: int = 0) -> int:
     return total
 
 
-def attention_bound(b, hq, hkv, sq, skv, dh, window, elem_bytes):
-    """(bound ms, bound_by, f32-core bound ms, flops, bytes) of one causal
-    attention: 4 dh flops per unmasked pair and head (q.k and p.v) over
-    the bf16 tensor-core peak, against one read of q, k, v and one write
-    of the output over the memory rate."""
-    flops = 4 * dh * unmasked_pairs(sq, skv, window) * b * hq
+def attention_bound(b, hq, hkv, sq, skv, dh, window, elem_bytes,
+                    causal=True):
+    """(bound ms, bound_by, f32-core bound ms, flops, bytes) of one
+    attention (causal: its unmasked pairs; else all sq * skv): 4 dh flops
+    per computed pair and head (q.k and p.v) over the bf16 tensor-core
+    peak, against one read of q, k, v and one write of the output over
+    the memory rate."""
+    pairs = unmasked_pairs(sq, skv, window) if causal else sq * skv
+    flops = 4 * dh * pairs * b * hq
     nbytes = (2 * b * hq * sq * dh + 2 * b * hkv * skv * dh) * elem_bytes
     t_ops = flops / BF16_TC_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -3196,6 +3280,132 @@ def _percentile(xs, q):
     return float(np.percentile(np.asarray(xs), q)) if xs else None
 
 
+def teacher_forced_decode(m, params, toks, device):
+    """Logits (n, vocab) of ``toks`` (1, n) fed one token a step through
+    ``m.decode_step`` from empty caches at positions 0..n-1.  On the card
+    the step is captured once in a CUDA graph and replayed, its new
+    caches copied back into the captured ones after each replay: the
+    same kernels in the same order, without the host dispatch of ~50
+    small kernels a layer that makes an eager step 50-120 ms at full
+    width."""
+    import torch
+
+    from repro_torch.optim.adamw import tree_leaves
+
+    n = toks.shape[1]
+    caches = m.decode_init(1, n)
+    if device == "cpu":
+        steps = []
+        for t in range(n):
+            step, caches = m.decode_step(params, caches, toks[:, t:t + 1],
+                                         t)
+            steps.append(step[0])
+        return torch.stack(steps)
+    tok = toks[:, :1].clone()
+    pos = torch.zeros(1, dtype=torch.int32, device=device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):       # warm up outside the capture
+        m.decode_step(params, caches, tok, pos)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits, new = m.decode_step(params, caches, tok, pos)
+    pairs = list(zip(tree_leaves(caches), tree_leaves(new)))
+    out = torch.empty((n, logits.shape[-1]), dtype=logits.dtype,
+                      device=device)
+    for t in range(n):
+        tok.copy_(toks[:, t:t + 1])
+        pos.fill_(t)
+        graph.replay()
+        out[t] = logits[0]
+        for dst, src in pairs:
+            dst.copy_(src)
+    return out
+
+
+def prefill_vs_decode(m32, params, toks, device, tol: float = LM_TOL):
+    """f32 prefill logits of ``toks`` (1, n) against teacher-forced decode
+    (plain torch, ``teacher_forced_decode``); returns (max abs err, within
+    ``tol``, flash launches on the f32 route, decode seconds)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    n = toks.shape[1]
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        full = m32.forward(params, {"tokens": toks})[0]
+        _sync(device)
+        f32_launches = ops.entry_launch_counts()["flash_attention"]
+        t0 = time.perf_counter()
+        dec = teacher_forced_decode(m32, params, toks, device)
+        _sync(device)
+        dec_s = time.perf_counter() - t0
+        err = float((dec - full).abs().max())
+        ok = bool(torch.allclose(dec, full, atol=tol, rtol=tol))
+    return err, ok, f32_launches, dec_s
+
+
+def serve_clustered(model, params, sz, rng, device) -> dict:
+    """``SERVE_REQUESTS`` requests (prompts of ``sz["prompt"]`` tokens,
+    ``sz["new"]`` new tokens each, embeddings around two centres) through
+    a ``ServingEngine`` of ``SERVE_BATCH`` slots with request clustering
+    on ``soa-device``; every request must be served in full and, on the
+    card, the clustering kernels launched.  Returns its numbers."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs import make_obs
+    from repro_torch.serving import Request, ServingEngine
+
+    obs = make_obs(True)
+    backend = "soa-device"
+    eng = ServingEngine(model, params, batch=SERVE_BATCH,
+                        kv_len=sz["serve_kv"], cluster_requests=True,
+                        cluster_backend=backend, obs=obs)
+    centres = rng.normal(size=(2, 8)) * 3
+    lo, hi = sz["prompt"]
+    prompts = [rng.integers(1, model.cfg.vocab_size,
+                            size=int(rng.integers(lo, hi + 1)))
+               for _ in range(SERVE_REQUESTS)]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for rid, prompt in enumerate(prompts):
+        eng.submit(Request(
+            rid=rid, prompt=prompt, max_new_tokens=sz["new"],
+            embedding=centres[rid % 2] + 0.05 * rng.normal(size=8)))
+    steps = []
+    while eng.queue or any(sl is not None for sl in eng.slots):
+        ts = time.perf_counter()
+        eng.step()
+        steps.append((time.perf_counter() - ts) * 1e6)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    serve_launches = ops.launch_counts()
+    done = eng.done
+    eng.close()
+    gen = sum(len(r.out_tokens) for r in done.values())
+    hist = obs.histogram("serving.step_us")
+    if sorted(done) != list(range(SERVE_REQUESTS)) or \
+            gen != SERVE_REQUESTS * sz["new"]:
+        raise AssertionError(f"served {sorted(done)} with {gen} tokens")
+    if device != "cpu":
+        missing = [kn for kn in MAIN_KERNELS if serve_launches[kn] <= 0]
+        if missing:
+            raise AssertionError(f"request clustering launched no {missing}")
+    return {
+        "batch": SERVE_BATCH, "kv_len": sz["serve_kv"],
+        "requests": len(done), "generated_tokens": gen,
+        "prompt_tokens": sum(len(p) for p in prompts), "wall_s": wall,
+        "tokens_per_s": gen / wall, "steps": len(steps),
+        "step_us_p50": _percentile(steps, 50),
+        "step_us_p99": _percentile(steps, 99),
+        "hist_step_us_p50": hist.percentile(50),
+        "hist_step_us_p99": hist.percentile(99),
+        "clusters": sorted({r.cluster for r in done.values()}),
+        "cluster_backend": backend, "launches": serve_launches,
+    }
+
+
 def run_lm_path(device: str):
     """Drive the dense-LM serving path of ``LM_ARCH`` on ``device``:
     prefill through ``forward`` (launch count), the kernel against its
@@ -3207,8 +3417,6 @@ def run_lm_path(device: str):
 
     from repro_torch.kernels import ops
     from repro_torch.models.registry import build_model
-    from repro_torch.obs import make_obs
-    from repro_torch.serving import Request, ServingEngine
 
     sz = lm_sizes(device)
     cfg = lm_config(sz["smoke"])
@@ -3297,28 +3505,15 @@ def run_lm_path(device: str):
     n = sz["check"]
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).to(
         device)
-    with torch.inference_mode():
-        ops.reset_launch_counts()
-        full = m32.forward(params, {"tokens": toks})[0]
-        _sync(device)
-        f32_launches = ops.entry_launch_counts()["flash_attention"]
-        caches = m32.decode_init(1, n)
-        dec = torch.empty_like(full)
-        t0 = time.perf_counter()
-        for t in range(n):
-            step, caches = m32.decode_step(params, caches, toks[:, t:t + 1],
-                                           t)
-            dec[t] = step[0]
-        _sync(device)
-        dec_s = time.perf_counter() - t0
-        err = float((dec - full).abs().max())
-        ok = bool(torch.allclose(dec, full, atol=LM_TOL, rtol=LM_TOL))
-    del full, dec, caches
+    err, ok, f32_launches, dec_s = prefill_vs_decode(m32, params, toks,
+                                                     device)
     out["prefill_vs_decode"] = {"tokens": n, "window": cfg.window,
                                 "max_abs_err": err, "tol": LM_TOL,
                                 "flash_launches": f32_launches,
                                 "decode_steps_s": dec_s,
-                                "decode_ms_per_step_b1_f32": dec_s / n * 1e3}
+                                "decode_ms_per_step_b1_f32": dec_s / n * 1e3,
+            "decode_cuda_graph": on_card,
+                                "decode_cuda_graph": on_card}
     print(f"lm: f32 prefill vs teacher-forced decode over {n} tokens: max "
           f"abs err {err:.3e} (tol {LM_TOL})", flush=True)
     if not ok:
@@ -3328,53 +3523,7 @@ def run_lm_path(device: str):
                              f"route {f32_launches} times")
 
     # 4. serving with request clustering on the card
-    obs = make_obs(True)
-    backend = "soa-device"
-    eng = ServingEngine(model, params, batch=SERVE_BATCH,
-                        kv_len=sz["serve_kv"], cluster_requests=True,
-                        cluster_backend=backend, obs=obs)
-    centres = rng.normal(size=(2, 8)) * 3
-    lo, hi = sz["prompt"]
-    prompts = [rng.integers(1, cfg.vocab_size,
-                            size=int(rng.integers(lo, hi + 1)))
-               for _ in range(SERVE_REQUESTS)]
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    for rid, prompt in enumerate(prompts):
-        eng.submit(Request(
-            rid=rid, prompt=prompt, max_new_tokens=sz["new"],
-            embedding=centres[rid % 2] + 0.05 * rng.normal(size=8)))
-    steps = []
-    while eng.queue or any(sl is not None for sl in eng.slots):
-        ts = time.perf_counter()
-        eng.step()
-        steps.append((time.perf_counter() - ts) * 1e6)
-    _sync(device)
-    wall = time.perf_counter() - t0
-    serve_launches = ops.launch_counts()
-    done = eng.done
-    eng.close()
-    gen = sum(len(r.out_tokens) for r in done.values())
-    hist = obs.histogram("serving.step_us")
-    if sorted(done) != list(range(SERVE_REQUESTS)) or \
-            gen != SERVE_REQUESTS * sz["new"]:
-        raise AssertionError(f"served {sorted(done)} with {gen} tokens")
-    if on_card:
-        missing = [kn for kn in MAIN_KERNELS if serve_launches[kn] <= 0]
-        if missing:
-            raise AssertionError(f"request clustering launched no {missing}")
-    out["serving"] = {
-        "batch": SERVE_BATCH, "kv_len": sz["serve_kv"],
-        "requests": len(done), "generated_tokens": gen,
-        "prompt_tokens": sum(len(p) for p in prompts), "wall_s": wall,
-        "tokens_per_s": gen / wall, "steps": len(steps),
-        "step_us_p50": _percentile(steps, 50),
-        "step_us_p99": _percentile(steps, 99),
-        "hist_step_us_p50": hist.percentile(50),
-        "hist_step_us_p99": hist.percentile(99),
-        "clusters": sorted({r.cluster for r in done.values()}),
-        "cluster_backend": backend, "launches": serve_launches,
-    }
+    out["serving"] = serve_clustered(model, params, sz, rng, device)
     print("lm: serving " + json.dumps(out["serving"]), flush=True)
     return out, {"model": model, "params": params, "q": q, "k": k, "v": v,
                  "window": cfg.window, "prefill": sz["prefill"],
@@ -3528,23 +3677,14 @@ def profile_lm(ctx, device: str) -> dict:
     rng = np.random.default_rng(SEED + 5)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                          (1, ctx["prefill"]))).to(device)
-    caches = model.decode_init(SERVE_BATCH, ctx["serve_kv"])
-    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                        (SERVE_BATCH, 1))).to(device)
-    pos = torch.arange(SERVE_BATCH, device=device, dtype=torch.int32) * 16
-    act = torch.ones(SERVE_BATCH, dtype=torch.bool, device=device)
     with torch.inference_mode():
         model.forward(params, {"tokens": toks})       # warm
-        model.decode_step(params, caches, tok, pos, act)
         wall, evs = device_events(
             lambda: model.forward(params, {"tokens": toks}))
         pre = _top_ops(evs, wall)
-        wall, evs = device_events(
-            lambda: model.decode_step(params, caches, tok, pos, act))
-        dec = _top_ops(evs, wall)
     return {"prefill": {"tokens": ctx["prefill"], **pre},
-            "decode_step": {"batch": SERVE_BATCH, "kv_len": ctx["serve_kv"],
-                            **dec}}
+            "decode_step": decode_step_profile(model, params,
+                                               ctx["serve_kv"], rng, device)}
 
 
 # ---------------------------------------------------------------------- #
@@ -4037,6 +4177,314 @@ def run_train_phase(n_points: int, device: str, kept: dict,
 
 
 # ---------------------------------------------------------------------- #
+# families path: the moe, vlm, ssm, hybrid and audio archs on the card
+# ---------------------------------------------------------------------- #
+def family_sizes(device: str) -> dict:
+    """Phase 9's sizes: on the card the published widths (FAMILY_RUNS);
+    on the CPU (tests) each arch's smoke config with sequences cut by
+    ``scale``."""
+    if device == "cpu":
+        return {"smoke": True, "scale": 32, "frames": 48, "check": 40,
+                "serve_kv": 96, "prompt": (8, 40), "new": 4,
+                "time_reps": 1}
+    return {"smoke": False, "scale": 1, "frames": AUDIO_FRAMES,
+            "check": FAMILY_CHECK_TOKENS, "serve_kv": SERVE_KV,
+            "prompt": (SERVE_PROMPT_MIN, SERVE_PROMPT_MAX),
+            "new": SERVE_NEW_TOKENS, "time_reps": 3}
+
+
+def family_config(arch: str, layers, smoke: bool, dtype: str = "bfloat16"):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if smoke:
+        cfg = cfg.smoke()
+    changes = {"dtype": dtype}
+    if layers:      # a depth cut; a smoke config is shallower already
+        changes["n_layers"] = min(layers, cfg.n_layers)
+    return dataclasses.replace(cfg, **changes)
+
+
+def attention_calls(cfg) -> int:
+    """Full-sequence attention calls of one forward, each one flash
+    launch: one a layer for dense, vlm, moe and hybrid, none for ssm,
+    the encoder's layers plus two a decoder layer (self and cross) for
+    audio."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "audio":
+        return cfg.n_encoder_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def family_batch(cfg, text: int, frames: int, rng, device) -> dict:
+    """One sequence: ``text`` tokens, a vlm's patches, audio's frames
+    (unit normal, as stub embeddings)."""
+    import numpy as np
+    import torch
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(device)
+
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, text))).to(device)}
+    if cfg.family == "vlm":
+        batch["patches"] = normal(1, cfg.n_patches, cfg.d_vision)
+    if cfg.family == "audio":
+        batch["frames"] = normal(1, frames, cfg.d_model)
+    return batch
+
+
+def decode_step_profile(model, params, serve_kv: int, rng,
+                        device: str) -> dict:
+    """Top device operations and the busy share of one fused decode step
+    of the serving batch (every row active, rows at different
+    positions)."""
+    import torch
+
+    cfg = model.cfg
+    caches = model.decode_init(SERVE_BATCH, serve_kv)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (SERVE_BATCH, 1))).to(device)
+    pos = torch.arange(SERVE_BATCH, device=device, dtype=torch.int32) * 16
+    act = torch.ones(SERVE_BATCH, dtype=torch.bool, device=device)
+    with torch.inference_mode():
+        model.decode_step(params, caches, tok, pos, act)       # warm
+        wall, evs = device_events(
+            lambda: model.decode_step(params, caches, tok, pos, act))
+    return {"batch": SERVE_BATCH, "kv_len": serve_kv, **_top_ops(evs, wall)}
+
+
+def run_family(arch: str, layers, text: int, sz: dict, rng, device: str,
+               card: str) -> dict:
+    """One arch of phase 9: a bf16 forward (flash launches equal to its
+    attention calls, all on the tensor-core route; finite logits of the
+    expected shape), clustered serving, and, per arch, f32 prefill
+    against decode and a profiled decode step."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+
+    on_card = device != "cpu"
+    cfg = family_config(arch, layers, sz["smoke"])
+    model = build_model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    _sync(device)
+    n_params = sum(t.numel() for t in _leaves(params))
+    out = {"arch": arch, "family": cfg.family, "n_layers": cfg.n_layers,
+           "layers_published": family_config(arch, None, False).n_layers,
+           "n_encoder_layers": cfg.n_encoder_layers, "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+           "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+           "ssm_state": cfg.ssm_state, "ssm_heads": cfg.ssm_heads,
+           "vocab": cfg.padded_vocab, "params": n_params,
+           "init_s": time.perf_counter() - t0}
+    batch = family_batch(cfg, text, sz["frames"], rng, device)
+    n_prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    want = attention_calls(cfg)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        logits = model.forward(params, batch)
+        _sync(device)
+        launches = ops.launch_counts()["flash_attention"]
+        tc = ops.entry_launch_counts()["flash_attention_sm90"]
+        if on_card and (launches != want or tc != want):
+            raise AssertionError(f"{arch}: flash_attention launched "
+                                 f"{launches} times ({tc} on the tensor-core"
+                                 f" route) in one forward, expected {want}")
+        if tuple(logits.shape) != (1, n_prefix + text, cfg.padded_vocab):
+            raise AssertionError(f"{arch}: logits {tuple(logits.shape)}")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch}: prefill logits are not finite")
+        del logits
+        walls = []
+        for _ in range(sz["time_reps"]):
+            t0 = time.perf_counter()
+            model.forward(params, batch)
+            _sync(device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+    tokens = n_prefix + text
+    out.update({"prefill_text_tokens": text, "prefill_prefix": n_prefix,
+                "encoder_frames": (sz["frames"] if cfg.family == "audio"
+                                   else 0),
+                "attention_calls": want, "flash_launches_per_forward":
+                launches, "flash_tensor_core_launches_per_forward": tc,
+                "prefill_ms": walls, "prefill_logits_finite": True,
+                "prefill_tokens_per_s": tokens / (min(walls) / 1e3)})
+    if on_card:
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    del batch
+    out["serving"] = serve_clustered(model, params, sz, rng, device)
+    if on_card and arch in FAMILY_PROFILE_ARCHS:
+        out["decode_profile"] = decode_step_profile(
+            model, params, sz["serve_kv"], rng, device)
+    if arch in FAMILY_CHECK_TOL:
+        tol = FAMILY_CHECK_TOL[arch]
+        cfg32 = family_config(arch, layers, sz["smoke"], "float32")
+        m32 = build_model(cfg32, device=device)
+        n = sz["check"]
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (1, n))).to(device)
+        err, ok, f32_launches, dec_s = prefill_vs_decode(m32, params, toks,
+                                                         device, tol)
+        out["prefill_vs_decode"] = {
+            "tokens": n, "max_abs_err": err, "tol": tol,
+            "flash_launches": f32_launches, "decode_steps_s": dec_s,
+            "decode_ms_per_step_b1_f32": dec_s / n * 1e3,
+            "decode_cuda_graph": on_card,
+            "first_mixer": mixer_vs_recurrence(
+                params["layers"][0]["ssm"], cfg32, n, device)}
+        if not ok:
+            raise AssertionError(f"{arch}: f32 prefill and decode logits "
+                                 f"differ by {err} (tol {tol})")
+        if on_card and f32_launches != want:
+            raise AssertionError(f"{arch}: the f32 forward took "
+                                 f"flash_attention's f32 route "
+                                 f"{f32_launches} times, expected {want}")
+    sv = out["serving"]
+    cut = ("" if cfg.n_layers == out["layers_published"] else
+           f" (CUT from {out['layers_published']})")
+    print(f"families: {arch} ({cfg.family}) {cfg.n_layers} layers{cut}, "
+          f"{n_params / 1e9:.3f} B params {cfg.param_dtype}; bf16 prefill "
+          f"{tokens} tokens: {min(walls):.2f} ms, flash launches "
+          f"{launches} of {want} attention calls (sm90 {tc}); serving "
+          f"{sv['tokens_per_s']:.1f} tokens/s, step p50 / p99 "
+          f"{sv['step_us_p50'] / 1e3:.2f} / {sv['step_us_p99'] / 1e3:.2f} "
+          f"ms" + (f"; f32 prefill vs decode over "
+                   f"{out['prefill_vs_decode']['tokens']} tokens: max abs "
+                   f"err {out['prefill_vs_decode']['max_abs_err']:.3e}"
+                   if "prefill_vs_decode" in out else "")
+          + f"  [{card}]", flush=True)
+    return out
+
+
+def mixer_vs_recurrence(p, cfg, n: int, device: str) -> dict:
+    """One Mamba-2 mixer in f32 (TF32 off): ``mamba2_block`` (the chunked
+    scan) against ``mamba2_decode`` (the recurrence) over ``n`` tokens of
+    unit-normal input, within the reference's ``LM_TOL``."""
+    import torch
+
+    from repro_torch.models import ssm as S
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    u = torch.randn((1, n, cfg.d_model), generator=g, device=device)
+    with torch.inference_mode():
+        full = S.mamba2_block(p, u, cfg, torch.float32)
+        cache = S.init_ssm_cache(cfg, 1, torch.float32, device)
+        steps = []
+        for t in range(n):
+            y, cache = S.mamba2_decode(p, u[:, t:t + 1], cache, cfg,
+                                       torch.float32)
+            steps.append(y)
+        dec = torch.cat(steps, dim=1)
+        err = float((dec - full).abs().max())
+        if not bool(torch.allclose(dec, full, atol=LM_TOL, rtol=LM_TOL)):
+            raise AssertionError(f"{cfg.name}: the mixer's scan and its "
+                                 f"recurrence differ by {err}")
+    return {"tokens": n, "max_abs_err": err, "tol": LM_TOL,
+            "max_abs": float(dec.abs().max())}
+
+
+def serve_defaults(device: str) -> dict:
+    """``python -m repro_torch.launch.serve`` through ``main()`` with its
+    defaults (``mamba2-780m`` at full width on the card; its smoke config
+    on the CPU): every request served, each with its ``--max-new``
+    tokens."""
+    from repro_torch.launch import serve
+
+    argv = [] if device != "cpu" else ["--smoke", "--device", "cpu"]
+    requests, max_new = 12, 8   # its --requests and --max-new defaults
+    t0 = time.perf_counter()
+    done = serve.main(argv)
+    wall = time.perf_counter() - t0
+    gen = sum(len(r.out_tokens) for r in done.values())
+    if sorted(done) != list(range(requests)) or gen != requests * max_new:
+        raise AssertionError(f"launch.serve served {sorted(done)} with "
+                             f"{gen} tokens")
+    return {"argv": argv, "requests": len(done), "generated_tokens": gen,
+            "wall_s": wall}
+
+
+def flash_at_family_shapes(device: str, card: str) -> list:
+    """The flash kernel against its plain version at the shapes phase 9
+    gives it first (FLASH_FAMILY_SHAPES): bf16 within one ulp, f32
+    within 2e-5, each timed beside its plain version, SDPA and the
+    bound.  On the card only, as FLASH_SWEEP_TRAIN: on the CPU the
+    "kernel" is the plain version itself (an empty list)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    rows = []
+    if device == "cpu":
+        return rows
+    for tag, b, hq, hkv, sq, skv, dh, causal in FLASH_FAMILY_SHAPES:
+        g = torch.Generator(device=device).manual_seed(sq * 1000 + dh)
+        q32 = torch.randn((b, hq, sq, dh), generator=g, device=device)
+        k32 = torch.randn((b, hkv, skv, dh), generator=g, device=device)
+        v32 = torch.randn((b, hkv, skv, dh), generator=g, device=device)
+        e32, e16 = flash_check(q32, k32, v32, None, causal=causal)
+        row = {"tag": tag, "shape": [b, hq, sq, dh], "kv_heads": hkv,
+               "skv": skv, "causal": causal, "max_abs_err": e16,
+               "tol": FLASH_BF16_TOL, "max_abs_err_f32": e32,
+               "tol_f32": FLASH_F32_TOL}
+        q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
+        bound_ms, bound_by, *_ = attention_bound(
+            b, hq, hkv, sq, skv, dh, None, 2, causal=causal)
+        row.update({
+            "ms": time_ms(lambda: ops.attention(q, k, v, causal=causal),
+                          reps=10, warmup=2),
+            "plain_ms": time_ms(lambda: ops.attention(
+                q, k, v, causal=causal, impl="ref"), reps=3, warmup=1),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), reps=10,
+                warmup=2),
+            "bound_ms": bound_ms, "bound_by": bound_by, "card": card})
+        rows.append(row)
+        del q, k, v, q32, k32, v32
+    return rows
+
+
+def run_families_phase(device: str, card: str) -> dict:
+    """Phase 9: every arch of FAMILY_RUNS (``run_family``), then
+    ``launch.serve``'s defaults, then the flash kernel at the phase's new
+    shapes; each arch's model is freed before the next is built."""
+    import numpy as np
+    import torch
+
+    sz = family_sizes(device)
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 prefill vs decode
+    rng = np.random.default_rng(SEED + 9)
+    t0 = time.perf_counter()
+    out = {"archs": {}}
+    for arch, layers, text in FAMILY_RUNS:
+        ta = time.perf_counter()
+        out["archs"][arch] = run_family(arch, layers, text // sz["scale"],
+                                        sz, rng, device, card)
+        out["archs"][arch]["wall_s"] = time.perf_counter() - ta
+        gc.collect()
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    out["serve_defaults"] = serve_defaults(device)
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    out["flash_shapes"] = flash_at_family_shapes(device, card)
+    out["wall_s"] = time.perf_counter() - t0
+    out["card"] = card
+    return out
+
+
+# ---------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--points", type=int, default=FULL_POINTS,
@@ -4193,6 +4641,8 @@ def main(argv=None) -> int:
     gc.collect()
 
     # 4. baselines path
+    print(f"baselines: CUT — Table 2 at {BASELINE_POINTS} points instead "
+          f"of {TABLE2_POINTS}", flush=True)
     base, x_base = run_baselines(BASELINE_POINTS, "cuda")
     base["card"] = card
     print("baselines " + json.dumps(base), flush=True)
@@ -4314,7 +4764,33 @@ def main(argv=None) -> int:
           f"{td['checkpoints']} ({td['checkpoint_bytes']} bytes); part "
           f"{td['wall_s']:.1f} s  [{card}]", flush=True)
     print("train_path " + json.dumps(tr), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9. families: the moe, vlm, ssm, hybrid and audio archs at their
+    #    published widths, each through a bf16 forward and clustered
+    #    serving; launch.serve's defaults; the flash kernel at the shapes
+    #    these models give it
+    fam = run_families_phase("cuda", card)
+    sd = fam["serve_defaults"]
+    print(f"families: launch.serve defaults ({sd['argv']}): "
+          f"{sd['requests']} requests, {sd['generated_tokens']} tokens in "
+          f"{sd['wall_s']:.2f} s  [{card}]", flush=True)
+    for r in fam["flash_shapes"]:
+        print(f"families: flash_attention {r['tag']} {r['shape']} kv heads "
+              f"{r['kv_heads']} skv {r['skv']} causal {r['causal']}: err "
+              f"{r['max_abs_err']:.3e} bf16 / {r['max_abs_err_f32']:.3e} "
+              f"f32; {r['ms']:.4f} ms, plain {r['plain_ms']:.3f}, SDPA "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ms  "
+              f"[{card}]", flush=True)
+    print(f"families: phase {fam['wall_s']:.1f} s  [{card}]", flush=True)
+    print("families_path " + json.dumps(fam), flush=True)
     for k in kernels:
+        if k["name"] == "flash_attention":
+            k["families_launches"] = {
+                arch: m["flash_launches_per_forward"]
+                for arch, m in fam["archs"].items()}
+            k["families_checks"] = fam["flash_shapes"]
         if k["name"] in MAIN_ENTRIES:
             k["restored_index_launches"] = ta["entry_launches"][k["name"]]
             k["curation_launches"] = tb["entry_launches"][k["name"]]

@@ -1,0 +1,17 @@
+"""granite-moe-1b-a400m: MoE 24L, d_model 1024, 16H GQA(kv=8), d_ff 512,
+vocab 49155, 32 experts top-8.  [hf:ibm-granite/granite-3.0-1b-a400m-base; hf]"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-moe-1b-a400m",
+    family="moe",
+    n_layers=24,
+    d_model=1024,
+    n_heads=16,
+    n_kv_heads=8,
+    d_ff=512,
+    vocab_size=49155,
+    n_experts=32,
+    top_k=8,
+    source="hf:ibm-granite/granite-3.0-1b-a400m-base",
+)

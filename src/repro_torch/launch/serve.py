@@ -7,11 +7,11 @@ backend, ``batched-device`` or ``soa-device``, runs on ``--device``;
 ``--tier RATE`` serves from the tiered index, on the host;
 ``--cluster-shards S`` shards the clustering index, its shards on
 ``--device`` over a device backend, reached by ``--cluster-transport``).
-The default arch is a dense one until the SSM family is ported (the
-reference's is ``mamba2-780m``); an arch of an unported family raises.
+``--arch`` takes every id of :mod:`repro_torch.configs` and defaults, as
+the reference does, to ``mamba2-780m``.
 
 Usage:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-20b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve [--arch mamba2-780m] \\
       --smoke --requests 16 --batch 4 [--cluster [--cluster-backend soa-device]]
 """
 
@@ -30,7 +30,7 @@ from ..serving.engine import Request, ServingEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-20b", choices=list(ARCH_IDS))
+    ap.add_argument("--arch", default="mamba2-780m", choices=list(ARCH_IDS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="where the model runs (default: cuda)")

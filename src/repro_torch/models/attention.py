@@ -70,16 +70,18 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor,
 
 
 def attention_block(p: Dict[str, Any], x: torch.Tensor, cfg, *, theta,
-                    window: Optional[int], compute_dtype) -> torch.Tensor:
-    """Full-sequence (prefill) causal attention block; ``window`` None =
-    full attention (the reference's traced ``-1``)."""
+                    window: Optional[int], compute_dtype,
+                    causal: bool = True) -> torch.Tensor:
+    """Full-sequence (prefill) attention block; ``window`` None = full
+    attention (the reference's traced ``-1``), ``causal=False`` for an
+    encoder; ``theta`` None = no RoPE."""
     q, k, v = _project_qkv(p, x, cfg, compute_dtype)
     if theta is not None:
         positions = torch.arange(x.shape[1], device=x.device)[None, None, :]
         q = L.rope(q, positions, theta)
         k = L.rope(k, positions, theta)
     out = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                        causal=True, window=window)
+                        causal=causal, window=window)
     return _out_proj(out, p["wo"], compute_dtype)
 
 

@@ -1,12 +1,17 @@
 """The JAX package's parameter tree -> the port's.
 
-``repro.models.transformer.init_lm`` stacks the layers along a leading
-``n_layers`` axis (``repro/models/layers.py`` ``stack_layers``); the port
-keeps a list of per-layer dicts.  Given the reference's tree as numpy
-arrays (``jax.tree.map(np.asarray, params)``), :func:`params_from_jax`
-slices it per layer and moves it to ``device`` in the same dtypes, so
-both packages compute the same model.  Only the tests need this: the
-port's own ``init`` draws its weights from a ``torch.Generator``.
+``repro.models`` stacks each layer stack along a leading axis
+(``repro/models/layers.py`` ``stack_layers``): ``layers`` for the
+decoder-only families, ``enc_layers`` and ``dec_layers`` for the
+encoder-decoder; the port keeps a list of per-layer dicts.  Given the
+reference's tree as numpy arrays (``jax.tree.map(np.asarray, params)``),
+:func:`params_from_jax` slices each stack per layer (a moe layer's
+experts stay stacked: (X, E, F)) and moves every leaf to ``device`` in
+the same dtype, so both packages compute the same model: the ssm
+subtree, hybrid's ``comb``, a vlm's ``vision_proj`` and whisper's
+``frontend`` / ``ln_enc`` come across as they are.  Only the tests need
+this: the port's own ``init`` draws its weights from a
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -15,8 +20,6 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
-
-from ..configs import unported_family
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -30,15 +33,24 @@ def _tree(node, device, layer=None):
                    device)
 
 
+def _first_leaf(node):
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return np.asarray(node)
+
+
 def params_from_jax(np_params: Dict[str, Any], cfg,
                     device="cpu") -> Dict[str, Any]:
-    if cfg.family != "dense":
-        raise unported_family(cfg.family)
-    out = {k: _tree(v, device) for k, v in np_params.items()
-           if k != "layers"}
-    stacked = np_params["layers"]
-    n = np.asarray(stacked["ln_attn"]["w"]).shape[0]
-    if n != cfg.n_layers:
-        raise ValueError(f"the tree has {n} layers, cfg {cfg.n_layers}")
-    out["layers"] = [_tree(stacked, device, i) for i in range(n)]
+    stacks = {"layers": cfg.n_layers, "dec_layers": cfg.n_layers,
+              "enc_layers": cfg.n_encoder_layers}
+    out = {}
+    for name, node in np_params.items():
+        if name not in stacks:
+            out[name] = _tree(node, device)
+            continue
+        n = _first_leaf(node).shape[0]
+        if n != stacks[name]:
+            raise ValueError(f"the tree's {name} has {n} layers, cfg "
+                             f"{stacks[name]}")
+        out[name] = [_tree(node, device, i) for i in range(n)]
     return out

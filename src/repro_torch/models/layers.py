@@ -1,7 +1,7 @@
 """Common layers: norms, RoPE, MLPs, embeddings, param declaration.
 
-Mirrors of ``repro.models.layers`` for the dense family.  Parameters are
-plain nested dicts of tensors; the reference's logical sharding axes have
+Mirrors of ``repro.models.layers``.  Parameters are plain nested dicts
+of tensors; the reference's logical sharding axes have
 no meaning on one card and are not kept.  A model's stacked layers are a
 list of per-layer dicts (:mod:`.transformer`), not a leading axis.
 """
@@ -92,6 +92,28 @@ def swiglu(p, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     u = x @ p["w_up"].to(compute_dtype)
     h = torch.nn.functional.silu(g.to(torch.float32)).to(compute_dtype) * u
     return h @ p["w_down"].to(compute_dtype)
+
+
+def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+                  dtype=torch.float32):
+    return declare(gen, {
+        "w_in": ((d_model, d_ff), fan_in_std(d_model)),
+        "b_in": ((d_ff,), 0.0),
+        "w_out": ((d_ff, d_model), fan_in_std(d_ff)),
+        "b_out": ((d_model,), 0.0),
+    }, dtype)
+
+
+def gelu_mlp(p, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """Whisper's MLP.  ``jax.nn.gelu`` defaults to the tanh
+    approximation, hence ``approximate="tanh"`` (not torch's exact
+    default)."""
+    h = x @ p["w_in"].to(compute_dtype)
+    h = torch.nn.functional.gelu(
+        (h + p["b_in"].to(compute_dtype)).to(torch.float32),
+        approximate="tanh")
+    out = h.to(compute_dtype) @ p["w_out"].to(compute_dtype)
+    return out + p["b_out"].to(compute_dtype)
 
 
 # --------------------------------------------------------------------- #

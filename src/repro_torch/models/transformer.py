@@ -1,25 +1,38 @@
-"""Decoder-only LM, dense family.
+"""Decoder-only LM covering the dense / MoE / SSM / hybrid / VLM families.
 
-Mirror of ``repro.models.transformer`` for ``family="dense"``.  The
-reference scans a stacked layer tree under ``jax.checkpoint``; here the
-layers are a list of per-layer dicts and both the full-sequence forward
-and decode are Python loops over it, with per-layer (theta, window) from
+Mirror of ``repro.models.transformer``.  The reference scans a stacked
+layer tree under ``jax.checkpoint``; here the layers are a list of
+per-layer dicts and both the full-sequence forward and decode are Python
+loops over it, with per-layer (theta, window) from
 :func:`_layer_meta_py` — so Gemma-3's 5:1 local:global pattern gives
 each layer its own window and RoPE theta, and window layers get
-window-sized decode caches.  Each layer's full-sequence attention
-launches the flash-attention kernel once (on the card).
+window-sized decode caches.
+
+Families (``cfg.family``):
+
+* ``dense`` and ``vlm``: attention + SwiGLU MLP; a vlm's ``patches``
+  (b, n_patches, d_vision) pass through ``vision_proj`` and prefix the
+  text, and the loss drops the prefix's logits.
+* ``moe``: attention + :mod:`.moe`'s top-k block, whose load-balance
+  ``aux`` is summed over the layers.
+* ``ssm``: the Mamba-2 mixer of :mod:`.ssm` alone.
+* ``hybrid``: attention and Mamba-2 on the same normed input, combined
+  as ``0.5 * (rms(att) + rms(ssm))``, then the SwiGLU MLP.
+
+Each full-sequence attention launches the flash-attention kernel once
+(on the card): once per layer for dense, vlm, moe and hybrid, never for
+ssm.  Decode attends in plain torch and steps the SSM recurrence.
 
 Training: :func:`lm_loss` is the reference's mean next-token cross
-entropy (vocabulary padding masked, labels < 0 ignored; the dense
-family's MoE ``aux`` is 0).  When gradients are being taken and
-``cfg.remat`` is set, each layer runs under
-``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, as the
-reference runs its layer scan under ``jax.checkpoint``: the backward
-recomputes the layer, so the flash kernel launches twice per layer and
-step.  Prefill and decode take no gradient and are unchanged.
+entropy (vocabulary padding masked, labels < 0 ignored) plus ``0.01 *
+aux``.  When gradients are being taken and ``cfg.remat`` is set, each
+layer runs under ``torch.utils.checkpoint.checkpoint(use_reentrant=
+False)``, as the reference runs its layer scan under ``jax.checkpoint``:
+the backward recomputes the layer, so the flash kernel launches twice
+per attention layer and step.  Prefill and decode take no gradient.
 
-The moe, ssm, hybrid, vlm and audio families raise
-``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 4.2).
+A family the reference does not know raises ``ValueError``, as its
+``_layer_fwd`` does.
 """
 
 from __future__ import annotations
@@ -29,27 +42,46 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..configs import unported_family
 from . import attention as A
 from . import layers as L
+from . import moe as M
+from . import ssm as S
+
+#: the families this module builds (``audio`` is :mod:`.encdec`'s)
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+ATTN_FAMILIES = ("dense", "vlm", "moe", "hybrid")
+SSM_FAMILIES = ("ssm", "hybrid")
 
 
 def _check_family(cfg) -> None:
-    if cfg.family != "dense":
-        raise unported_family(cfg.family)
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
 
 
 # --------------------------------------------------------------------- #
 # init
 # --------------------------------------------------------------------- #
 def _init_layer(gen: torch.Generator, cfg, dtype) -> Dict[str, Any]:
+    fam = cfg.family
     zeros = {"w": ((cfg.d_model,), 0.0)}
-    return {
-        "attn": A.init_attention(gen, cfg, dtype),
-        "ln_attn": L.declare(gen, zeros, dtype),
-        "mlp": L.init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype),
-        "ln_mlp": L.declare(gen, zeros, dtype),
-    }
+    p: Dict[str, Any] = {}
+    if fam in ATTN_FAMILIES:
+        p["attn"] = A.init_attention(gen, cfg, dtype)
+        p["ln_attn"] = L.declare(gen, zeros, dtype)
+    if fam in ("dense", "vlm", "hybrid"):
+        p["mlp"] = L.init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype)
+        p["ln_mlp"] = L.declare(gen, zeros, dtype)
+    if fam == "moe":
+        p["moe"] = M.init_moe(gen, cfg, dtype)
+        p["ln_mlp"] = L.declare(gen, zeros, dtype)
+    if fam in SSM_FAMILIES:
+        p["ssm"] = S.init_mamba2(gen, cfg, dtype)
+        p["ln_ssm"] = L.declare(gen, zeros, dtype)
+    if fam == "hybrid":
+        p["comb"] = L.declare(gen, {"norm_attn": ((cfg.d_model,), 0.0),
+                                    "norm_ssm": ((cfg.d_model,), 0.0)},
+                              dtype)
+    return p
 
 
 def _layer_meta_py(cfg, i: int) -> Dict[str, Any]:
@@ -86,6 +118,10 @@ def init_lm(cfg, gen: torch.Generator) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["head"] = L.init_lm_head(gen, cfg.d_model, cfg.padded_vocab,
                                         dtype)
+    if cfg.family == "vlm":
+        params["vision_proj"] = L.declare(gen, {
+            "w": ((cfg.d_vision, cfg.d_model), L.fan_in_std(cfg.d_vision)),
+        }, dtype)
     return params
 
 
@@ -93,12 +129,28 @@ def init_lm(cfg, gen: torch.Generator) -> Dict[str, Any]:
 # full-sequence forward (prefill)
 # --------------------------------------------------------------------- #
 def _layer_fwd(lp, x, cfg, meta, compute_dtype):
+    """One layer of the full sequence -> (x, its MoE aux, 0 elsewhere)."""
+    fam = cfg.family
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if fam == "ssm":
+        h = L.rms_norm(x, lp["ln_ssm"]["w"], cfg.norm_eps)
+        return x + S.mamba2_block(lp["ssm"], h, cfg, compute_dtype), aux
     h = L.rms_norm(x, lp["ln_attn"]["w"], cfg.norm_eps)
-    x = x + A.attention_block(lp["attn"], h, cfg, theta=meta["theta"],
-                              window=meta["window"],
-                              compute_dtype=compute_dtype)
+    att = A.attention_block(lp["attn"], h, cfg, theta=meta["theta"],
+                            window=meta["window"],
+                            compute_dtype=compute_dtype)
+    if fam == "hybrid":
+        ssm = S.mamba2_block(lp["ssm"], h, cfg, compute_dtype)
+        x = x + 0.5 * (
+            L.rms_norm(att, lp["comb"]["norm_attn"], cfg.norm_eps)
+            + L.rms_norm(ssm, lp["comb"]["norm_ssm"], cfg.norm_eps))
+    else:
+        x = x + att
     h = L.rms_norm(x, lp["ln_mlp"]["w"], cfg.norm_eps)
-    return x + L.swiglu(lp["mlp"], h, compute_dtype)
+    if fam == "moe":
+        y, aux = M.moe_block_dense(lp["moe"], h, cfg, compute_dtype)
+        return x + y, aux
+    return x + L.swiglu(lp["mlp"], h, compute_dtype), aux
 
 
 def _takes_grad(lp, x: torch.Tensor) -> bool:
@@ -114,20 +166,31 @@ def _tensors(tree):
         yield tree
 
 
-def lm_forward(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (b, s) int -> logits (b, s, padded_vocab) in ``cfg.dtype``."""
+def lm_forward(params, cfg, tokens: torch.Tensor,
+               patches: Optional[torch.Tensor] = None):
+    """tokens (b, s) int [, a vlm's patches (b, n_patches, d_vision)] ->
+    (logits (b, n_prefix + s, padded_vocab) in ``cfg.dtype``, the summed
+    MoE aux (f32 0-d), n_prefix)."""
     _check_family(cfg)
     compute_dtype = L.dtype_of(cfg.dtype)
     x = L.embed(params["embed"], tokens, compute_dtype)
+    n_prefix = 0
+    if cfg.family == "vlm" and patches is not None:
+        vis = patches.to(compute_dtype) \
+            @ params["vision_proj"]["w"].to(compute_dtype)
+        x = torch.cat([vis, x], dim=1)
+        n_prefix = vis.shape[1]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
         meta = _layer_meta_py(cfg, i)
         if cfg.remat and _takes_grad(lp, x):
-            x = checkpoint(_layer_fwd, lp, x, cfg, meta, compute_dtype,
-                           use_reentrant=False)
+            x, a = checkpoint(_layer_fwd, lp, x, cfg, meta, compute_dtype,
+                              use_reentrant=False)
         else:
-            x = _layer_fwd(lp, x, cfg, meta, compute_dtype)
+            x, a = _layer_fwd(lp, x, cfg, meta, compute_dtype)
+        aux = aux + a
     x = L.rms_norm(x, params["ln_f"]["w"], cfg.norm_eps)
-    return _head(params, cfg, x, compute_dtype)
+    return _head(params, cfg, x, compute_dtype), aux, n_prefix
 
 
 def _head(params, cfg, x, compute_dtype):
@@ -137,11 +200,13 @@ def _head(params, cfg, x, compute_dtype):
 
 
 def lm_loss(params, cfg, batch):
-    """Mean next-token CE over valid (label >= 0) positions + MoE aux
-    (0 here) -> (loss, {"ce", "aux", "tokens"}), f32 0-d tensors."""
-    logits = lm_forward(params, cfg, batch["tokens"])
+    """Mean next-token CE over valid (label >= 0) text positions + 0.01 *
+    MoE aux -> (loss, {"ce", "aux", "tokens"}), f32 0-d tensors."""
+    logits, aux, n_prefix = lm_forward(params, cfg, batch["tokens"],
+                                       batch.get("patches"))
+    if n_prefix:
+        logits = logits[:, n_prefix:]
     ce, denom = _ce(logits, batch["labels"], cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     loss = ce / denom + 0.01 * aux
     return loss, {"ce": ce / denom, "aux": aux, "tokens": denom}
 
@@ -171,19 +236,26 @@ def _ce(logits, labels, cfg):
 # decode: per-layer loop with per-layer cache shapes
 # --------------------------------------------------------------------- #
 def init_decode_state(cfg, batch: int, kv_len: int,
-                      device) -> List[Dict[str, torch.Tensor]]:
-    """Per-layer caches ``{"k", "v"}`` of (batch, hkv, S_i, dh) in
-    ``cfg.dtype``; window layers get ``S_i = min(window, kv_len)``."""
+                      device) -> List[Dict[str, Any]]:
+    """Per-layer caches: attention families ``{"k", "v"}`` of (batch,
+    hkv, S_i, dh) in ``cfg.dtype``, window layers with ``S_i =
+    min(window, kv_len)``; ssm and hybrid ``{"ssm": {"state", "conv"}}``
+    (:func:`.ssm.init_ssm_cache`)."""
     _check_family(cfg)
     dtype = L.dtype_of(cfg.dtype)
     Hkv, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
-    caches = []
+    caches: List[Dict[str, Any]] = []
     for i in range(cfg.n_layers):
-        window = _layer_meta_py(cfg, i)["window"]
-        S_i = kv_len if window is None else min(window, kv_len)
-        shape = (batch, Hkv, S_i, Dh)
-        caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                       "v": torch.zeros(shape, dtype=dtype, device=device)})
+        c: Dict[str, Any] = {}
+        if cfg.family in ATTN_FAMILIES:
+            window = _layer_meta_py(cfg, i)["window"]
+            S_i = kv_len if window is None else min(window, kv_len)
+            shape = (batch, Hkv, S_i, Dh)
+            c["k"] = torch.zeros(shape, dtype=dtype, device=device)
+            c["v"] = torch.zeros(shape, dtype=dtype, device=device)
+        if cfg.family in SSM_FAMILIES:
+            c["ssm"] = S.init_ssm_cache(cfg, batch, dtype, device)
+        caches.append(c)
     return caches
 
 
@@ -193,22 +265,40 @@ def lm_decode_step(params, cfg, caches, token: torch.Tensor, pos,
     bool (continuous batching) -> (logits (b, vp), new caches)."""
     _check_family(cfg)
     compute_dtype = L.dtype_of(cfg.dtype)
+    fam = cfg.family
     x = L.embed(params["embed"], token, compute_dtype)
     new_caches = []
     for i, lp in enumerate(params["layers"]):
         meta = _layer_meta_py(cfg, i)
         c = dict(caches[i])
+        if fam == "ssm":
+            h = L.rms_norm(x, lp["ln_ssm"]["w"], cfg.norm_eps)
+            y, c["ssm"] = S.mamba2_decode(lp["ssm"], h, c["ssm"], cfg,
+                                          compute_dtype, active=active)
+            x = x + y
+            new_caches.append(c)
+            continue
         h = L.rms_norm(x, lp["ln_attn"]["w"], cfg.norm_eps)
         windowed = (meta["window"] is not None
                     and c["k"].shape[2] <= meta["window"])
-        y, c["k"], c["v"] = A.decode_attention_block(
+        att, c["k"], c["v"] = A.decode_attention_block(
             lp["attn"], h, c["k"], c["v"], pos, cfg,
             theta=meta["theta"], window=meta["window"],
             compute_dtype=compute_dtype, windowed_cache=windowed,
             active=active)
-        x = x + y
+        if fam == "hybrid":
+            ssm, c["ssm"] = S.mamba2_decode(lp["ssm"], h, c["ssm"], cfg,
+                                            compute_dtype, active=active)
+            x = x + 0.5 * (
+                L.rms_norm(att, lp["comb"]["norm_attn"], cfg.norm_eps)
+                + L.rms_norm(ssm, lp["comb"]["norm_ssm"], cfg.norm_eps))
+        else:
+            x = x + att
         h = L.rms_norm(x, lp["ln_mlp"]["w"], cfg.norm_eps)
-        x = x + L.swiglu(lp["mlp"], h, compute_dtype)
+        if fam == "moe":
+            x = x + M.moe_block_dense(lp["moe"], h, cfg, compute_dtype)[0]
+        else:
+            x = x + L.swiglu(lp["mlp"], h, compute_dtype)
         new_caches.append(c)
     x = L.rms_norm(x, params["ln_f"]["w"], cfg.norm_eps)
     logits = _head(params, cfg, x, compute_dtype)[:, 0]

@@ -3,11 +3,13 @@ version, the ``soa-device`` engine on ``cuda`` against the host ``soa``
 engine, the sampled-core engine's device path on ``cuda`` against its
 host twin, ``batched-device`` on ``cuda`` against ``batched-device`` on
 the CPU, ``sharded`` over ``soa-device`` shards on ``cuda`` (in process
-and in worker processes) against the same index on the CPU, and the
-dense LM's prefill (through the flash-attention kernel)
-against its decode.  Tolerance zero for the integer kernels (for
-``eps_neighbor_counts`` because the kernel and its plain version round
-every f32 product and sum in the same order).  ``flash_attention`` sums
+and in worker processes) against the same index on the CPU, the dense
+LM's prefill (through the flash-attention kernel) against its decode,
+and the bf16 prefill of a hybrid and an encoder-decoder model through
+the kernel against the same forward with the plain attention.
+Tolerance zero for the integer kernels (for ``eps_neighbor_counts``
+because the kernel and its plain version round every f32 product and
+sum in the same order).  ``flash_attention`` sums
 in another f32 order than its plain version: atol = rtol = 2e-5 in
 float32 (``tests/test_kernels.py``'s tolerance); in bfloat16 it is held
 against the plain version run on the f32 upcast of the same inputs and
@@ -735,6 +737,47 @@ def test_lm_bf16_prefill_takes_tensor_core_route(cuda):
     assert ops.launch_counts()["flash_attention"] == 6
     assert ops.entry_launch_counts()["flash_attention_sm90"] == 6
     assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "whisper-small"])
+def test_family_bf16_prefill_on_card(cuda, arch, monkeypatch):
+    """hymba's (GQA group 2 at head_dim 16, beside the SSM) and whisper's
+    (non-causal encoder, cross attention with sq != skv) smoke configs in
+    bf16: every attention call of the prefill is one flash launch on the
+    tensor cores, and the logits equal those of the same forward with
+    the plain attention within atol = rtol = 0.1 (the bf16 bound of
+    ``tests/test_torch_models.py``: the plain version rounds the logits
+    to bf16, the kernel keeps f32 scores)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="bfloat16")
+    m = build_model(cfg)
+    p = m.init(5)
+    rng = np.random.default_rng(5)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 40 if arch == "whisper-small" else 200))
+    ).to(cuda)}
+    calls = cfg.n_layers
+    if arch == "whisper-small":
+        batch["frames"] = torch.randn((2, 300, cfg.d_model), device=cuda)
+        calls = cfg.n_encoder_layers + 2 * cfg.n_layers
+    ops.reset_launch_counts()
+    logits = m.forward(p, batch)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == calls
+    assert ops.entry_launch_counts()["flash_attention_sm90"] == calls
+    assert bool(torch.isfinite(logits).all())
+    kernel_attention = ops.attention
+    monkeypatch.setattr(ops, "attention", lambda *a, **kw: kernel_attention(
+        *a, impl="ref", **kw))
+    ops.reset_launch_counts()
+    plain = m.forward(p, batch)
+    assert ops.launch_counts()["flash_attention"] == 0
+    torch.testing.assert_close(logits.float(), plain.float(), atol=0.1,
+                               rtol=0.1)
 
 
 # the trainer's attention: granite-20b's 48 query heads on one kv head

@@ -233,17 +233,6 @@ def test_init_draws_the_reference_shapes_and_stds():
             assert abs(t.std().item() / c.std().item() - 1) < 0.1, path
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "dbrx-132b",
-                                  "whisper-small"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config(arch)
-    cfg = dataclasses.replace(get_config("granite-20b").smoke(),
-                              family=jax_get_config(arch).family)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg, device="cpu")
-
-
 def test_entry_points_default_to_the_card():
     m = build_model(get_config("granite-20b").smoke())
     assert m.device.type == "cuda"

@@ -9,7 +9,8 @@ request clustering on the ``soa`` backend on both sides, the same
 ``dynamic``).  Also: a request's output does not depend on the requests
 sharing its batch (the port's counterpart of
 ``tests/test_pipeline_serving.py::test_serving_engine_isolation_between_slots``),
-and ``python -m repro_torch.launch.serve --smoke --device cpu`` runs.
+and ``python -m repro_torch.launch.serve --smoke --device cpu`` runs
+(on its default arch, ``mamba2-780m``).
 """
 
 import dataclasses
@@ -284,17 +285,24 @@ def test_no_silent_host_fallback_for_a_device():
                       cluster_backend="batched-device")
 
 
-def test_serve_cli_runs_on_cpu(capsys):
+def test_serve_cli_runs_on_cpu(capsys, monkeypatch):
+    """The default arch is the reference's, ``mamba2-780m``."""
+    built = []
+
+    def spy(cfg, device=None):
+        built.append(cfg.name)
+        return build_model(cfg, device)
+
+    monkeypatch.setattr(serve, "build_model", spy)
     done = serve.main(["--smoke", "--device", "cpu", "--requests", "5",
                        "--max-new", "3"])
+    assert built == ["mamba2-780m"]
     assert sorted(done) == list(range(5))
     assert "served 5 requests, 15 tokens" in capsys.readouterr().out
     done = serve.main(["--arch", "gemma3-27b", "--smoke", "--device", "cpu",
                        "--requests", "4", "--cluster",
                        "--cluster-backend", "soa"])
     assert all(d.cluster is not None for d in done.values())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve.main(["--arch", "mamba2-780m", "--smoke", "--device", "cpu"])
 
 
 def test_serve_cli_cluster_default_matches_jax(capsys):

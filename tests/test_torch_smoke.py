@@ -6,6 +6,9 @@ eps-ball counts through ``ops`` on the CPU), so does its LM path
 (gemma3-27b's smoke config at the phase's depth: prefill, the attention
 checks, prefill vs decode, clustered serving), so does its training phase (index checkpoints,
 curation, the trainer and its protocol at granite-20b's smoke config),
+so does its families phase (the six archs of the moe, vlm, ssm, hybrid
+and audio families at their smoke configs, and ``launch.serve``'s
+defaults),
 its attention bound counts the unmasked pairs, and the script itself
 refuses to run without a CUDA device."""
 
@@ -130,6 +133,33 @@ def test_lm_path_runs_on_cpu():
     assert ctx["q"].shape == (1, 4, 80, 16)
 
 
+def test_families_phase_runs_on_cpu():
+    """Phase 9 at each arch's smoke config: the forward (no launch on the
+    CPU), clustered serving, f32 prefill vs decode for the ssm and hybrid
+    archs, and ``launch.serve``'s defaults (``mamba2-780m``)."""
+    out = chip_smoke.run_families_phase("cpu", "cpu")
+    assert list(out["archs"]) == [a for a, _, _ in chip_smoke.FAMILY_RUNS]
+    calls = {a: m["attention_calls"] for a, m in out["archs"].items()}
+    assert calls == {"mamba2-780m": 0, "hymba-1.5b": 2,
+                     "granite-moe-1b-a400m": 2, "llava-next-mistral-7b": 2,
+                     "dbrx-132b": 2, "whisper-small": 6}
+    for arch, m in out["archs"].items():
+        assert m["flash_launches_per_forward"] == 0, arch
+        assert m["prefill_logits_finite"], arch
+        assert m["serving"]["requests"] == chip_smoke.SERVE_REQUESTS
+        assert m["serving"]["generated_tokens"] == \
+            chip_smoke.SERVE_REQUESTS * 4
+    assert out["archs"]["llava-next-mistral-7b"]["prefill_prefix"] == 4
+    for arch in chip_smoke.FAMILY_CHECK_TOL:
+        check = out["archs"][arch]["prefill_vs_decode"]
+        assert check["tokens"] == 40
+        assert check["max_abs_err"] <= chip_smoke.LM_TOL
+        assert check["first_mixer"]["max_abs_err"] <= chip_smoke.LM_TOL
+    assert out["serve_defaults"]["requests"] == 12
+    assert out["serve_defaults"]["generated_tokens"] == 96
+    assert out["flash_shapes"] == []
+
+
 def test_attention_bound_counts_unmasked_pairs():
     assert chip_smoke.unmasked_pairs(4, 4, None) == 10
     assert chip_smoke.unmasked_pairs(4, 4, 2) == 7
@@ -144,6 +174,11 @@ def test_attention_bound_counts_unmasked_pairs():
     ms, by, *_ = chip_smoke.attention_bound(1, 32, 16, 4096, 4096, 128,
                                             1024, 2)
     assert by == "operations" and 0.060 < ms < 0.061
+    # non-causal (whisper's cross attention): every pair is computed
+    *_, flops, nbytes = chip_smoke.attention_bound(1, 12, 12, 448, 1500, 64,
+                                                   None, 2, causal=False)
+    assert flops == 4 * 64 * 12 * 448 * 1500
+    assert nbytes == (2 * 12 * 448 + 2 * 12 * 1500) * 64 * 2
 
 
 def test_script_refuses_without_cuda(capsys):
