@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--points N]
 
-Phases (1-3, 3b-3e, 4-9), each of which raises on failure (exit code
+Phases (1-3, 3b-3e, 4-10), each of which raises on failure (exit code
 != 0):
 
 1. device  — print the card (``nvidia-smi`` name and power limit, torch's
@@ -248,6 +248,29 @@ Phases (1-3, 3b-3e, 4-9), each of which raises on failure (exit code
              non-causal encoder and its 448 x 1,500 cross attention),
              timed beside its plain version, SDPA and the bound.  The
              phase prints its wall time.
+10. cells  — the reference's (arch x shape) grid (``launch.cells.
+             build_cell(..., device="cuda")``) at the published widths:
+             prefill_32k and decode_32k for all ten archs, long_500k for
+             the three ``cell_supported`` allows, train_4k for one arch of
+             each family (CELL_TRAIN_ARCHS), each cut in depth and batch
+             (CELL_CUTS, printed beside the cell).  Each cut cell is first
+             analysed on ``meta`` (``launch.dryrun.analyze_cell``): its
+             FLOPs, bytes, state and predicted peak, which must fit the
+             80 GB card, and its H100 roofline bound (a prefill's also
+             along the flash kernel's path).  Then it runs on weights drawn
+             from a seeded generator once per arch (each cell takes its
+             depth of them; the train cell last, as it updates them in
+             place): flash launches counted over its runs only, equal to
+             its attention calls (twice under remat, per microbatch), all
+             on the tensor-core route; step time (CUDA events after a
+             warm-up), peak memory, bound / step time; finite logits of
+             the expected shape; a train cell's step 1 (loss, gradient
+             norm) within CELL_STEP1_RTOL of the same cell with the plain
+             attention and its update skipped, every parameter the loss
+             reaches changed and all finite.  At each prefill the flash
+             kernel is held against its plain version on the q / k / v of
+             one layer of each distinct shape and mask (32,768 rows; one
+             query head), and timed beside SDPA and its bound.
 
 The line before the last is one JSON object with a ``kernels`` list (all
 five kernels and the ``lsh_hash_resolve`` and fused
@@ -258,7 +281,8 @@ path, 3e (a), with their check at a shard's sub-batch, and on phase 8
 (a)'s restored index and (b)'s curation; ``flash_attention``'s its
 launches in 8 (c) and (d) and its check at the trainer's shape, and its
 launches per forward of each arch of phase 9 with its checks at phase
-9's shapes); the last line is ``{"ok": true, "device": {...}}``.
+9's shapes, and its launches in each cell of phase 10 with its checks at
+32,768 rows); the last line is ``{"ok": true, "device": {...}}``.
 ``--points`` cuts the main, dict and approx streams only (the cut is
 printed);
 d, k, t, eps and the batch never change.
@@ -465,6 +489,74 @@ FLASH_FAMILY_SHAPES = (
     ("whisper-small encoder", 1, 12, 12, 1500, 1500, 64, False),
     ("whisper-small cross", 1, 12, 12, 448, 1500, 64, False),
 )
+# cells phase (10): the reference's (arch x shape) grid through
+# launch.cells.build_cell on the card at the published widths.  Every arch
+# runs prefill_32k (batch cut from 32 to 1) and decode_32k, the three that
+# cell_supported allows run long_500k, and one arch of each family runs
+# train_4k (batch cut from 256 to 8, the accumulation clamped to it as
+# the reference clamps it).  CELL_CUTS: (layers or None for all, batch);
+# each cut is reckoned from the cell's state_bytes (launch.dryrun) and
+# checked before the run against the card's 80 GB by the peak the cut
+# cell predicts on meta (run_cell); the depth cuts also keep the phase
+# within its ~180 s.  Params + grads + AdamW's m and v take 16 B a
+# parameter: phi3's 32 layers (3.82 B) 61 GB, llava's 32 (7.24 B) 116 GB.
+CELL_TRAIN_ARCHS = ("phi3-mini-3.8b", "granite-moe-1b-a400m",
+                    "llava-next-mistral-7b", "mamba2-780m", "hymba-1.5b",
+                    "whisper-small")
+CELL_CUTS = {
+    # f32 weights: qwen 5.4 GB a layer + 10 GB embed/head; its bf16 cache
+    # at batch 8 is 1.07 GB a layer
+    ("qwen1.5-110b", "prefill_32k"): (4, 1),
+    ("qwen1.5-110b", "decode_32k"): (4, 8),
+    ("granite-20b", "prefill_32k"): (8, 1),
+    ("granite-20b", "decode_32k"): (8, 64),
+    # two 5:1 periods: two global layers (4.3 GB of cache each at 500k)
+    ("gemma3-27b", "prefill_32k"): (12, 1),
+    ("gemma3-27b", "decode_32k"): (12, 16),
+    ("gemma3-27b", "long_500k"): (12, None),
+    # phi3's 32 kv heads: 403 MB of cache a sequence and layer at 32k
+    ("phi3-mini-3.8b", "prefill_32k"): (16, 1),
+    ("phi3-mini-3.8b", "decode_32k"): (8, 4),
+    ("phi3-mini-3.8b", "train_4k"): (16, 8),
+    # one dbrx layer's f32 weights are 12.7 GB
+    ("dbrx-132b", "prefill_32k"): (2, 1),
+    ("dbrx-132b", "decode_32k"): (2, 32),
+    ("granite-moe-1b-a400m", "prefill_32k"): (None, 1),
+    ("granite-moe-1b-a400m", "decode_32k"): (None, 8),
+    ("granite-moe-1b-a400m", "train_4k"): (None, 8),
+    ("llava-next-mistral-7b", "prefill_32k"): (10, 1),
+    ("llava-next-mistral-7b", "decode_32k"): (10, 8),
+    ("llava-next-mistral-7b", "train_4k"): (10, 8),
+    # mamba2 carries state only: 9.7 GB at the full batch of 128.  Its
+    # and hymba's train steps are cut to half depth for the phase's time:
+    # at full depth they took 7.80 / 11.11 s a step (three steps a cell)
+    # on an NVIDIA H100 80GB HBM3 at 700 W, the SSD's chunk loop host-bound
+    ("mamba2-780m", "prefill_32k"): (None, 1),
+    ("mamba2-780m", "train_4k"): (24, 8),
+    # hymba's cache at 500k: 21.5 GB at full depth
+    ("hymba-1.5b", "prefill_32k"): (None, 1),
+    ("hymba-1.5b", "decode_32k"): (None, 8),
+    ("hymba-1.5b", "train_4k"): (16, 8),
+    ("whisper-small", "prefill_32k"): (None, 1),
+    ("whisper-small", "decode_32k"): (None, 16),
+    ("whisper-small", "train_4k"): (None, 8),
+}
+CELL_CARD_BYTES = 80e9          # one H100 SXM (data sheet)
+# on the CPU (tests): the smoke configs at (sequence, batch)
+CELL_SMOKE_SHAPES = {"prefill_32k": (64, 1), "decode_32k": (64, 2),
+                     "long_500k": (128, 1), "train_4k": (32, 8)}
+# query heads (with their kv heads) on which the flash kernel is held
+# against its plain version at a prefill cell's shapes
+CELL_CHECK_HEADS = 1
+# train_4k's step 1 against the same cell with the plain attention
+# (relative error of the loss, of the global gradient norm), per family,
+# set before the first card run from phase 8's reading (3.3e-6 / 3.5e-5
+# at 4 layers x 1,024 tokens): ~10x deeper stacks and 4x longer rows give
+# a margin of ~6; a moe router may flip a near-tied expert; the ssm
+# family runs no attention, so both steps compute the same thing
+CELL_STEP1_RTOL = {"dense": (2e-4, 2e-3), "vlm": (2e-4, 2e-3),
+                   "moe": (2e-4, 5e-3), "ssm": (2e-4, 2e-3),
+                   "hybrid": (2e-4, 2e-3), "audio": (2e-4, 2e-3)}
 INDEX_SAVE_AT = 100
 CURATION = dict(k=8, t=8, eps=0.6, policy="balance", window=20_000)
 CURATION_SEQ, CURATION_BATCH, CURATION_BATCHES = 64, 8, 400
@@ -4485,6 +4577,459 @@ def run_families_phase(device: str, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# cells path: the reference's (arch x shape) grid on the card
+# ---------------------------------------------------------------------- #
+def cell_grid() -> list:
+    """(arch, [shape ids in run order]) for every arch: prefill_32k,
+    decode_32k, long_500k where ``cell_supported`` allows it, and
+    train_4k for one arch of each family (CELL_TRAIN_ARCHS), last,
+    because the train step updates the arch's weights in place."""
+    from repro_torch.configs import ARCH_IDS, cell_supported
+
+    grid = []
+    for arch in ARCH_IDS:
+        shapes = [s for s in ("prefill_32k", "decode_32k", "long_500k")
+                  if cell_supported(arch, s)[0]]
+        if arch in CELL_TRAIN_ARCHS:
+            shapes.append("train_4k")
+        grid.append((arch, shapes))
+    return grid
+
+
+def cell_sizes(arch: str, shape_id: str, device: str):
+    """The cut (config, shape) of one cell: on the card the published
+    widths with CELL_CUTS' depth and batch; on the CPU (tests) the smoke
+    config and short sequences (CELL_SMOKE_SHAPES)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch.dryrun import at_depth
+
+    cfg, shape = get_config(arch), get_shape(shape_id)
+    layers, batch = CELL_CUTS.get((arch, shape_id), (None, None))
+    if device == "cpu":
+        cfg = cfg.smoke()
+        seq, batch = CELL_SMOKE_SHAPES[shape_id]
+        shape = dataclasses.replace(shape, seq_len=seq)
+        layers = min(layers, cfg.n_layers) if layers else None
+    if layers:
+        cfg = at_depth(cfg, layers)
+    if batch:
+        shape = dataclasses.replace(shape, global_batch=batch)
+    return cfg, shape
+
+
+def layers_view(params, cfg):
+    """``params`` (drawn at the arch's deepest cut) with each layer stack
+    cut to ``cfg``'s depth: the same tensors, no copy."""
+    out = dict(params)
+    for key, n in (("layers", cfg.n_layers), ("dec_layers", cfg.n_layers),
+                   ("enc_layers", cfg.n_encoder_layers)):
+        if key in out:
+            out[key] = out[key][:n]
+    return out
+
+
+def shape_only_attention(fn):
+    """An attention that allocates only its output, as the flash kernel
+    does: a prefill analysed on ``meta`` with it counts everything but
+    the attention itself, where ``ops.attention`` would take the plain
+    version and count its score matrices."""
+    import torch
+
+    def attend(q, k, v, **kw):
+        return torch.empty_like(q)
+    return attend
+
+
+def prefill_attention_calls(cfg, shape) -> list:
+    """(b, hq, hkv, sq, skv, dh, window, causal) of each attention call of
+    a prefill forward, in order: one a layer (its window) for the
+    attention families; the encoder's, then each decoder layer's self and
+    cross attention for audio."""
+    b, S = shape.global_batch, shape.seq_len
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if cfg.family == "ssm":
+        return []
+    if cfg.family == "audio":
+        t = max(S // 4, 8)
+        return ([(b, hq, hkv, S, S, dh, None, False)] * cfg.n_encoder_layers
+                + [(b, hq, hkv, t, t, dh, None, True),
+                   (b, hq, hkv, t, S, dh, None, False)] * cfg.n_layers)
+    from repro_torch.models.transformer import layer_metadata
+
+    return [(b, hq, hkv, S, S, dh, w, True)
+            for w in layer_metadata(cfg)["window"]]
+
+
+def cell_reckoning(arch: str, shape_id: str, cfg, shape) -> dict:
+    """The cut cell analysed on ``meta`` before it runs: FLOPs and bytes as
+    the reference's analysis counts them (the plain attention's every
+    score), their H100 roofline bound, ``state_bytes`` and the predicted
+    peak.  For a prefill the peak and a second bound, ``kernel_bound_ms``,
+    take the flash kernel's path: the cell analysed with
+    ``shape_only_attention``, plus each attention call's least work as
+    ``attention_bound`` counts it (its unmasked pairs; q, k, v read and
+    the output written once).  An ssm prefill runs no attention: its one
+    path is both."""
+    from repro_torch.launch.dryrun import analyze_cell
+    from repro_torch.launch.roofline import roofline_row
+
+    def bound(flops, nbytes):
+        row = roofline_row({"arch": arch, "shape": shape_id, "mesh": "",
+                            "chips": 1, "flops_per_device": flops,
+                            "hbm_bytes_per_device": nbytes})
+        return row["bound_time_s"] * 1e3, ("operations"
+                                           if row["dominant"] == "compute"
+                                           else "bytes")
+
+    rec = analyze_cell(arch, shape_id, cfg=cfg, shape=shape)
+    out = {"flops": rec["flops_per_device"],
+           "hbm_bytes": rec["hbm_bytes_per_device"],
+           "state_bytes": rec["state_bytes"],
+           "predicted_peak_bytes": rec["peak_bytes_per_device"],
+           "grad_accum": rec.get("grad_accum")}
+    out["bound_ms"], out["bound_by"] = bound(out["flops"], out["hbm_bytes"])
+    if shape.kind == "prefill" and cfg.family != "ssm":
+        with attention_swapped(shape_only_attention):
+            rest = analyze_cell(arch, shape_id, cfg=cfg, shape=shape)
+        flops, nbytes = rest["flops_per_device"], rest["hbm_bytes_per_device"]
+        for b, hq, hkv, sq, skv, dh, window, causal in \
+                prefill_attention_calls(cfg, shape):
+            flops += attention_bound(b, hq, hkv, sq, skv, dh, window, 2,
+                                     causal=causal)[3]
+            nbytes += 2 * 2 * b * hkv * skv * dh   # k and v; q, out counted
+        out["predicted_peak_bytes"] = rest["peak_bytes_per_device"]
+        out["kernel_flops"], out["kernel_hbm_bytes"] = flops, nbytes
+        out["kernel_bound_ms"], out["kernel_bound_by"] = bound(flops, nbytes)
+    return out
+
+
+class NormOnly:
+    """An optimizer that leaves the parameters as they are and reports the
+    global gradient norm: the train cell's forward, backward and
+    accumulation without its update, for the plain-attention step 1.
+    ``reached`` says which leaves (in ``tree_leaves`` order) got a
+    gradient that is not zero everywhere."""
+
+    reached = None
+
+    def update(self, grads, state, params):
+        from repro_torch.optim.adamw import global_norm, tree_leaves
+
+        self.reached = [bool((g != 0).any()) for g in tree_leaves(grads)]
+        return params, state, {"grad_norm": global_norm(grads), "lr": 0.0}
+
+
+def _fingerprints(params):
+    """(sum, sum of |x|) of each leaf (``tree_leaves`` order) in float64,
+    on its device."""
+    import torch
+
+    from repro_torch.optim.adamw import tree_leaves
+
+    return torch.stack([torch.stack([t.double().sum(), t.double().abs().sum()])
+                        for t in tree_leaves(params)])
+
+
+def _all_finite(tree) -> bool:
+    import torch
+
+    return all(bool(torch.isfinite(t).all()) for t in _leaves(tree)
+               if t.is_floating_point())
+
+
+def _logits_finite(logits, rows: int = 4096) -> bool:
+    """Every logit finite, a slice of the sequence at a time (a 32k
+    prefill's logits are up to 17 GB)."""
+    import torch
+
+    flat = logits.reshape(-1, logits.shape[-1])
+    return all(bool(torch.isfinite(flat[i:i + rows]).all())
+               for i in range(0, flat.shape[0], rows))
+
+
+def _timed(fn, device: str, reps: int):
+    """Mean ms of ``reps`` back-to-back calls of ``fn`` (CUDA events on the
+    card, the host clock on the CPU)."""
+    import torch
+
+    if device == "cpu":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def flash_at_cell(captured: dict, card: str, device: str) -> list:
+    """The flash kernel against its plain version on the q / k / v a
+    prefill cell gave it (one call of each distinct shape and mask), on
+    CELL_CHECK_HEADS query heads with their kv heads (the plain version's
+    scores take 4.3 GB a head at 32,768^2): f32 within 2e-5, bf16 within
+    one ulp; then the kernel at every head timed beside SDPA and the
+    bound, the plain version on the slice.  On the card only: on the CPU
+    the kernel is the plain version itself."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    rows = []
+    if device == "cpu":
+        return rows
+    for (sq, skv, causal, window), (q, k, v, kw) in captured.items():
+        b, hq, _, dh = q.shape
+        hkv = k.shape[1]
+        g = hq // hkv
+        heads = torch.arange(CELL_CHECK_HEADS, device=q.device) * g
+        qs = q[:, heads].contiguous()
+        ks, vs = (t[:, :CELL_CHECK_HEADS].contiguous() for t in (k, v))
+        e32, e16 = flash_check(qs, ks, vs, window, causal=causal,
+                               q_offset=kw.get("q_offset", 0))
+        bound_ms, bound_by, *_ = attention_bound(b, hq, hkv, sq, skv, dh,
+                                                 window, 2, causal=causal)
+        akw = {"causal": causal, "window": window}
+
+        if window is None:
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True)
+        else:
+            # a mask rules out SDPA's flash backend, and GQA its
+            # memory-efficient one (its math path would hold hq x sq x
+            # skv f32 scores): the kv heads are repeated to hq
+            pos = torch.arange(sq, device=q.device)
+            mask = (pos[:, None] >= pos[None, :]) & \
+                ((pos[:, None] - pos[None, :]) < window)
+            kr, vr = (t.repeat_interleave(g, dim=1) for t in (k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q, kr, vr,
+                                                      attn_mask=mask)
+
+        rows.append({
+            "shape": [b, hq, sq, dh], "kv_heads": hkv, "skv": skv,
+            "causal": causal, "window": window,
+            "check_heads": CELL_CHECK_HEADS, "max_abs_err": e16,
+            "tol": FLASH_BF16_TOL, "max_abs_err_f32": e32,
+            "tol_f32": FLASH_F32_TOL,
+            "ms": time_ms(lambda: ops.attention(q, k, v, **akw), reps=5,
+                          warmup=1),
+            "library_ms": time_ms(sdpa, reps=5, warmup=1),
+            "slice_ms": time_ms(lambda: ops.attention(qs, ks, vs, **akw),
+                                reps=5, warmup=1),
+            "slice_plain_ms": time_ms(lambda: ops.attention(
+                qs, ks, vs, impl="ref", **akw), reps=2, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "card": card})
+        del qs, ks, vs
+    return rows
+
+
+def capture_attention(captured: dict):
+    """Within the block the model's attention keeps the inputs of the
+    first call of each (sq, skv, causal, window) in ``captured``."""
+    def wrap(fn):
+        def attend(q, k, v, **kw):
+            sig = (q.shape[2], k.shape[2], kw.get("causal", True),
+                   kw.get("window"))
+            if sig not in captured:
+                captured[sig] = (q, k, v, kw)
+            return fn(q, k, v, **kw)
+        return attend
+    return attention_swapped(wrap)
+
+
+def run_cell(arch: str, shape_id: str, params, device: str,
+             card: str) -> dict:
+    """One cell of phase 10 on ``device``: the cut reckoned on ``meta``
+    first (its predicted peak must fit the card), then the cell built by
+    ``launch.cells.build_cell`` and run on inputs made from ``SEED``:
+    launches counted over its runs only, step time (CUDA events after a
+    warm-up), peak memory, and its checks (finite outputs of the expected
+    shape; a train step's step 1 against the plain attention's, every
+    parameter changed and finite)."""
+    import torch
+
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.training import make_train_step
+
+    on_card = device != "cpu"
+    cfg, shape = cell_sizes(arch, shape_id, device)
+    pub_cfg, pub_shape = get_config(arch), get_shape(shape_id)
+    out = {"arch": arch, "shape": shape_id, "kind": shape.kind,
+           "layers": cfg.n_layers, "layers_published": pub_cfg.n_layers,
+           "batch": shape.global_batch,
+           "batch_published": pub_shape.global_batch,
+           "seq": shape.seq_len, **cell_reckoning(arch, shape_id, cfg,
+                                                   shape)}
+    cut = []
+    if cfg.n_layers != pub_cfg.n_layers:
+        cut.append(f"layers {cfg.n_layers} of {pub_cfg.n_layers}")
+    if shape.global_batch != pub_shape.global_batch:
+        cut.append(f"batch {shape.global_batch} of "
+                   f"{pub_shape.global_batch}")
+    out["cut"] = ", ".join(cut) or "none"
+    if on_card and out["predicted_peak_bytes"] > CELL_CARD_BYTES:
+        raise AssertionError(f"cells: {arch} x {shape_id} ({out['cut']}) "
+                             f"predicts {out['predicted_peak_bytes']:.3e} B,"
+                             f" over the card's {CELL_CARD_BYTES:.0e}")
+    cell = build_cell(arch, shape_id, device=device, cfg=cfg, shape=shape)
+    p = layers_view(params, cfg)
+    args = cell.inputs(SEED, params=p)
+    want_launches = attention_calls(cfg) * (
+        2 * cell.accum if shape.kind == "train" else
+        1 if shape.kind == "prefill" else 0)
+    captured = {}
+    if shape.kind == "train":
+        # step 1 of the same cell with the plain attention, update skipped
+        norm_only = NormOnly()
+        with plain_attention():
+            _, _, ref = make_train_step(cell.model, norm_only,
+                                        grad_accum=cell.accum)(*args)
+        ref = {k: float(ref[k]) for k in ("loss", "grad_norm")}
+        before = _fingerprints(p)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if shape.kind == "prefill":
+        with capture_attention(captured):
+            res = cell.run(*args)
+    else:
+        res = cell.run(*args)
+    _sync(device)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    if shape.kind == "train":
+        step1 = {k: float(res[2][k]) for k in ("loss", "grad_norm")}
+        out["step1"] = {**step1, "plain": ref, **rel_errs(step1, ref),
+                        "bounds": CELL_STEP1_RTOL[cfg.family]}
+        lb, gb = CELL_STEP1_RTOL[cfg.family]
+        if (out["step1"]["loss_rel_err"] > lb
+                or out["step1"]["grad_norm_rel_err"] > gb):
+            raise AssertionError(f"cells: {arch} x {shape_id}: step 1 "
+                                 f"against the plain attention "
+                                 f"{out['step1']} is outside its bounds")
+        logits = None
+    else:
+        logits = res[0] if shape.kind == "decode" else res
+        want = ((shape.global_batch, cfg.padded_vocab)
+                if shape.kind == "decode" else
+                (shape.global_batch, cell.args[1]["tokens"].shape[1]
+                 + (cfg.n_patches if cfg.family == "vlm" else 0),
+                 cfg.padded_vocab))
+        if tuple(logits.shape) != want or not _logits_finite(logits):
+            raise AssertionError(f"cells: {arch} x {shape_id}: logits "
+                                 f"{tuple(logits.shape)} (want {want}), "
+                                 "finite?")
+    del res, logits
+    reps = 1 if warm_ms > 300 or shape.kind == "train" else 3
+    out["step_ms"] = _timed(lambda: cell.run(*args), device, reps)
+    out["runs"] = 1 + reps
+    out["warm_ms"] = warm_ms
+    launches = ops.launch_counts()["flash_attention"]
+    sm90 = ops.entry_launch_counts()["flash_attention_sm90"]
+    out["flash_launches"] = launches
+    out["flash_launches_per_run"] = launches / out["runs"]
+    out["flash_sm90_launches"] = sm90
+    if on_card and (launches != want_launches * out["runs"]
+                    or sm90 != launches):
+        raise AssertionError(f"cells: {arch} x {shape_id}: flash launched "
+                             f"{launches} times ({sm90} sm90) in "
+                             f"{out['runs']} runs, expected "
+                             f"{want_launches} a run, all sm90")
+    if on_card:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["share"] = out["bound_ms"] / out["step_ms"]
+    if "kernel_bound_ms" in out:
+        out["kernel_share"] = out["kernel_bound_ms"] / out["step_ms"]
+    if shape.kind == "train":
+        # every leaf the loss reaches changed; a leaf it does not reach
+        # (hymba's ln_ssm: the reference's init declares it, only the
+        # ssm family reads it) keeps its zeros
+        same = (_fingerprints(p) == before).all(dim=1).cpu().tolist()
+        unreached = [not r for r in norm_only.reached]
+        if same != unreached or not _all_finite(p):
+            raise AssertionError(
+                f"cells: {arch} x {shape_id}: leaves unchanged "
+                f"{[i for i, s in enumerate(same) if s]}, leaves the loss "
+                f"does not reach {[i for i, u in enumerate(unreached) if u]}"
+                " (tree_leaves order), or a parameter is not finite")
+        out["params_changed_and_finite"] = True
+        out["leaves_unreached"] = sum(unreached)
+    out["flash_checks"] = flash_at_cell(captured, card, device)
+    del captured, args
+    peak = (f"peak {out['peak_bytes'] / 1e9:.2f} GB (predicted "
+            f"{out['predicted_peak_bytes'] / 1e9:.2f}, state "
+            f"{out['state_bytes'] / 1e9:.2f})" if on_card else
+            f"state {out['state_bytes'] / 1e9:.4f} GB")
+    print(f"cells: {arch} x {shape_id} (CUT {out['cut']}; seq "
+          f"{shape.seq_len}): step {out['step_ms']:.2f} ms ({out['runs']} "
+          f"runs), {peak}; flash {out['flash_launches_per_run']:g} a run "
+          f"(sm90 {sm90} of {launches}); {out['flops']:.4e} FLOP, "
+          f"{out['hbm_bytes']:.4e} B -> bound {out['bound_ms']:.3f} ms "
+          f"({out['bound_by']}), share {out['share']:.4f}"
+          + (f"; flash path: bound {out['kernel_bound_ms']:.3f} ms "
+             f"({out['kernel_bound_by']}), share {out['kernel_share']:.4f}"
+             if "kernel_bound_ms" in out else "")
+          + (f"; step 1 vs plain: loss rel {out['step1']['loss_rel_err']:.2e}"
+             f", grad norm rel {out['step1']['grad_norm_rel_err']:.2e} "
+             f"(bounds {out['step1']['bounds']})"
+             if "step1" in out else "")
+          + "".join(f"; flash at {r['shape']} skv {r['skv']} window "
+                    f"{r['window']}: err {r['max_abs_err']:.2e} bf16 / "
+                    f"{r['max_abs_err_f32']:.2e} f32, {r['ms']:.3f} ms, "
+                    f"SDPA {r['library_ms']:.3f}, bound {r['bound_ms']:.3f}"
+                    for r in out["flash_checks"])
+          + f"  [{card}]", flush=True)
+    return out
+
+
+def run_cells_phase(device: str, card: str) -> dict:
+    """Phase 10: the reference's (arch x shape) grid (``cell_grid``)
+    through ``launch.cells.build_cell`` on ``device``, one model's weights
+    per arch (drawn from ``SEED`` at its deepest cut, each cell taking its
+    own depth of them), each arch freed before the next."""
+    import torch
+
+    from repro_torch.launch.dryrun import at_depth
+    from repro_torch.models.registry import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = {"cells": [], "card": card}
+    for arch, shapes in cell_grid():
+        depth = max(cell_sizes(arch, s, device)[0].n_layers for s in shapes)
+        cfg = at_depth(cell_sizes(arch, shapes[0], device)[0], depth)
+        params = build_model(cfg, device=device).init(SEED)
+        for shape_id in shapes:
+            out["cells"].append(run_cell(arch, shape_id, params, device,
+                                         card))
+            gc.collect()
+            if device != "cpu":
+                torch.cuda.empty_cache()
+        del params
+        gc.collect()
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+
+# ---------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--points", type=int, default=FULL_POINTS,
@@ -4785,6 +5330,16 @@ def main(argv=None) -> int:
               f"[{card}]", flush=True)
     print(f"families: phase {fam['wall_s']:.1f} s  [{card}]", flush=True)
     print("families_path " + json.dumps(fam), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10. cells: the reference's (arch x shape) grid through
+    #     launch.cells.build_cell, each cut printed, the flash kernel held
+    #     against its plain version at 32,768 rows
+    cells = run_cells_phase("cuda", card)
+    print(f"cells: {len(cells['cells'])} cells; phase {cells['wall_s']:.1f}"
+          f" s  [{card}]", flush=True)
+    print("cells_path " + json.dumps(cells), flush=True)
     for k in kernels:
         if k["name"] == "flash_attention":
             k["families_launches"] = {
@@ -4801,6 +5356,12 @@ def main(argv=None) -> int:
                 "ms": cur[f"{k['name']}_ms"],
                 "plain_ms": cur[f"{k['name']}_plain_ms"]}
         if k["name"] == "flash_attention":
+            k["cells_launches"] = {f"{m['arch']} x {m['shape']}":
+                                   m["flash_launches"]
+                                   for m in cells["cells"]}
+            k["cells_checks"] = [dict(r, cell=f"{m['arch']} x {m['shape']}")
+                                 for m in cells["cells"]
+                                 for r in m["flash_checks"]]
             k["train_launches"] = tc["flash_launches"]
             k["train_steps"] = tc["steps"]
             k["train_protocol_launches"] = td["flash_launches"]

@@ -32,3 +32,18 @@ def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCH_IDS)}")
     return import_module(f"{__name__}.{_MODULES[arch_id]}").CONFIG
+
+
+def get_shape(shape_id: str) -> ShapeConfig:
+    return SHAPES[shape_id]
+
+
+# (arch, shape) grid with documented skips, as the reference's
+# (DESIGN.md §Arch-applicability)
+LONG_CONTEXT_OK = ("gemma3-27b", "mamba2-780m", "hymba-1.5b")
+
+
+def cell_supported(arch_id: str, shape_id: str) -> tuple[bool, str]:
+    if shape_id == "long_500k" and arch_id not in LONG_CONTEXT_OK:
+        return False, "pure full-attention arch: 500k decode skipped (DESIGN.md)"
+    return True, ""

@@ -1,0 +1,229 @@
+"""(arch × shape) cells on one card: the train, prefill or decode step
+of an architecture at one input shape, with its inputs' shapes.
+
+Mirror of ``repro.launch.cells``, with one device in place of a mesh:
+
+* A :class:`Cell` holds ``device`` where the reference's holds ``mesh``,
+  and no shardings: on one device every logical axis is replicated, so
+  ``repro.sharding``'s specs have nothing to say (ROADMAP.md records
+  ``sharding/axes`` and ``launch/mesh`` as not applicable).
+* There is no ``lower``: a PyTorch step is not traced or compiled, so
+  there is nothing to lower.  A cell is run (:meth:`Cell.run`), or
+  analysed operation by operation on ``meta`` tensors
+  (:func:`repro_torch.launch.step_analysis.analyze_step` over a cell
+  built with ``device="meta"``).
+* ``args`` are ``meta`` tensors, the counterpart of the reference's
+  ``ShapeDtypeStruct`` trees: parameters from :func:`abstract_params`,
+  the optimizer state, the batch of :func:`batch_specs`, caches from the
+  model's ``decode_init``.  :meth:`Cell.inputs` makes real ones on the
+  cell's device from a seed.
+* No donation.  The reference donates params and optimizer state to the
+  train step and the caches to the decode step.  Here the train step's
+  AdamW writes the new parameters and moments into the tensors it is
+  given (``repro_torch.optim.adamw``); the decode step returns new caches
+  and leaves the ones it was given as they were
+  (``models.attention.decode_attention_block``), so the caller drops the
+  old ones.
+
+The three kinds are the reference's: ``train`` (``make_train_step`` with
+AdamW at ``warmup_cosine(3e-4, 100, 10_000)``, the accumulation clamped
+to the batch), ``prefill`` (``model.forward``: the full (B, S,
+padded_vocab) logits, as the reference's forward returns them) and
+``decode`` (one ``decode_step`` of a (B, 1) int32 token at a scalar
+position against caches of ``S``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from ..configs import ArchConfig, ShapeConfig, get_config, get_shape
+from ..models.registry import ModelAPI, build_model
+from ..optim import AdamW, warmup_cosine
+from ..optim.adamw import tree_map
+from ..training import make_train_step
+
+# per-(arch, shape) gradient-accumulation overrides, the reference's
+# values (it sized them for 16 GB chips; build_cell clamps them to the
+# batch)
+ACCUM_OVERRIDES = {
+    ("qwen1.5-110b", "train_4k"): 16,
+    ("granite-20b", "train_4k"): 8,
+    ("gemma3-27b", "train_4k"): 8,
+    ("dbrx-132b", "train_4k"): 16,
+    ("llava-next-mistral-7b", "train_4k"): 4,
+    ("phi3-mini-3.8b", "train_4k"): 4,
+    ("hymba-1.5b", "train_4k"): 2,
+    ("mamba2-780m", "train_4k"): 2,
+    ("granite-moe-1b-a400m", "train_4k"): 2,
+    ("whisper-small", "train_4k"): 2,
+}
+
+
+class Spec(NamedTuple):
+    """One input's shape and dtype (the reference's ``ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+    def meta(self) -> torch.Tensor:
+        return torch.empty(self.shape, dtype=self.dtype, device="meta")
+
+
+def abstract_params(model: ModelAPI) -> Dict[str, Any]:
+    """The parameter tree of ``model`` as ``meta`` tensors, without
+    allocating it.  ``model.init`` draws from a ``torch.Generator`` on the
+    model's device, and no generator lives on ``meta``; so the init runs
+    on a CPU twin of the model under ``FakeTensorMode``, which records
+    shapes and dtypes and draws nothing (the generator is left as it
+    was)."""
+    cpu = build_model(model.cfg, device="cpu")
+    with FakeTensorMode():
+        fake = cpu.init(0)
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), fake)
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeConfig,
+                with_labels: bool) -> Dict[str, Spec]:
+    """The batch's keys, shapes and dtypes, as the reference's: audio
+    gets ``frames`` (B, S, d_model) bf16 and max(S // 4, 8) tokens, a vlm
+    ``patches`` (B, n_patches, d_vision) bf16 and S - n_patches tokens,
+    every other family S tokens; labels are shaped like the tokens."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    out: Dict[str, Spec] = {}
+    if cfg.family == "audio":
+        s_txt = max(S // 4, 8)
+        out["frames"] = Spec((B, S, cfg.d_model), bf16)
+    elif cfg.family == "vlm":
+        s_txt = S - cfg.n_patches
+        out["patches"] = Spec((B, cfg.n_patches, cfg.d_vision), bf16)
+    else:
+        s_txt = S
+    out["tokens"] = Spec((B, s_txt), i32)
+    if with_labels:
+        out["labels"] = Spec((B, s_txt), i32)
+    return out
+
+
+def make_batch(specs: Dict[str, Spec], cfg: ArchConfig, seed: int,
+               device) -> Dict[str, torch.Tensor]:
+    """A batch of ``specs`` drawn with numpy from ``seed``: tokens and
+    labels uniform over the vocabulary, patches and frames unit normal
+    (stub embeddings)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name in sorted(specs):
+        shp, dtype = specs[name]
+        if dtype.is_floating_point:
+            a = rng.standard_normal(shp, dtype=np.float32)
+        else:
+            a = rng.integers(0, cfg.vocab_size, shp, dtype=np.int32)
+        out[name] = torch.from_numpy(a).to(device=device, dtype=dtype)
+    return out
+
+
+@dataclasses.dataclass
+class Cell:
+    arch: str
+    shape: str
+    cfg: ArchConfig
+    step_fn: Callable
+    args: tuple               # meta tensors: the step's inputs' shapes
+    kind: str                 # "train" | "prefill" | "decode"
+    device: torch.device
+    model: ModelAPI
+    shape_cfg: ShapeConfig
+    accum: Optional[int] = None
+    optimizer: Optional[AdamW] = None
+
+    def run(self, *args):
+        return self.step_fn(*args)
+
+    def inputs(self, seed: int = 0, params=None) -> tuple:
+        """Real inputs on the cell's device (a ``meta`` cell's are its
+        ``args``): ``params`` (default: the model's ``init(seed)``), then
+        a zero optimizer state and a batch (train), a batch (prefill), or
+        caches filled from ``seed``, a (B, 1) int32 token and the position
+        ``S - 1``, so that the step reads the whole cache (decode)."""
+        if params is None:
+            params = self.model.init(seed)
+        if self.kind == "train":
+            batch = make_batch(batch_specs(self.cfg, self.shape_cfg, True),
+                               self.cfg, seed, self.device)
+            return params, self.optimizer.init(params), batch
+        if self.kind == "prefill":
+            return params, make_batch(batch_specs(self.cfg, self.shape_cfg,
+                                                  False),
+                                      self.cfg, seed, self.device)
+        B, S = self.shape_cfg.global_batch, self.shape_cfg.seq_len
+        caches = self.model.decode_init(B, S)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        tree_map(lambda t: t.normal_(generator=gen), caches)
+        token = make_batch({"t": Spec((B, 1), torch.int32)}, self.cfg, seed,
+                           self.device)["t"]
+        pos = torch.tensor(S - 1, dtype=torch.int32, device=self.device)
+        return params, caches, token, pos
+
+
+def _prefill_fn(model: ModelAPI) -> Callable:
+    def prefill(params, batch):
+        with torch.no_grad():
+            return model.forward(params, batch)
+    return prefill
+
+
+def _decode_fn(model: ModelAPI) -> Callable:
+    def decode(params, caches, token, pos):
+        with torch.no_grad():
+            return model.decode_step(params, caches, token, pos)
+    return decode
+
+
+def build_cell(arch_id: str, shape_id: str,
+               device: Union[str, torch.device] = "cuda",
+               grad_accum: Optional[int] = None,
+               cfg: Optional[ArchConfig] = None,
+               shape: Optional[ShapeConfig] = None) -> Cell:
+    """The cell of ``arch_id`` × ``shape_id`` on ``device`` (default the
+    card; ``"meta"`` to analyse it, ``"cpu"`` to run it here).  ``cfg``
+    and ``shape`` replace the registered ones (a depth or batch cut)."""
+    cfg = cfg if cfg is not None else get_config(arch_id)
+    shape = shape if shape is not None else get_shape(shape_id)
+    dev = torch.device(device)
+    model = build_model(cfg, device=dev)
+    params = abstract_params(model)
+    common = dict(arch=arch_id, shape=shape_id, cfg=cfg, kind=shape.kind,
+                  device=dev, model=model, shape_cfg=shape)
+
+    if shape.kind == "train":
+        accum = grad_accum or ACCUM_OVERRIDES.get((arch_id, shape_id),
+                                                  cfg.grad_accum)
+        # microbatches must stay whole over the data-parallel extent,
+        # which is 1 on one card
+        dp_total = 1
+        accum = max(1, min(accum, shape.global_batch // dp_total))
+        opt = AdamW(lr=warmup_cosine(3e-4, 100, 10_000))
+        batch = {k: s.meta() for k, s in
+                 batch_specs(cfg, shape, with_labels=True).items()}
+        step = make_train_step(model, opt, grad_accum=accum)
+        return Cell(step_fn=step, args=(params, opt.init(params), batch),
+                    accum=accum, optimizer=opt, **common)
+
+    if shape.kind == "prefill":
+        batch = {k: s.meta() for k, s in
+                 batch_specs(cfg, shape, with_labels=False).items()}
+        return Cell(step_fn=_prefill_fn(model), args=(params, batch),
+                    **common)
+
+    B, S = shape.global_batch, shape.seq_len
+    caches = build_model(cfg, device="meta").decode_init(B, S)
+    token = Spec((B, 1), torch.int32).meta()
+    pos = Spec((), torch.int32).meta()
+    return Cell(step_fn=_decode_fn(model), args=(params, caches, token, pos),
+                **common)

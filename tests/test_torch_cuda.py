@@ -899,3 +899,66 @@ def test_train_step_on_card_runs_flash_under_remat(cuda):
     for kind, e in faults.items():
         assert (e["loss_rel_err"] > SMOKE_LOSS_RTOL
                 or e["grad_norm_rel_err"] > SMOKE_GNORM_RTOL), (kind, e)
+
+def test_cells_prefill_on_card(cuda, monkeypatch):
+    """``launch.cells.build_cell`` on the card (its default device):
+    whisper-small's smoke config as a prefill cell of 2 x 256 frames and
+    64 tokens.  Every attention call is one flash launch on the tensor
+    cores; the logits have the cell's shape and equal those of the same
+    cell with the plain attention within atol = rtol = 0.1 (the bf16
+    bound of ``test_family_bf16_prefill_on_card``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.cells import build_cell
+
+    cfg = get_config("whisper-small").smoke()
+    cell = build_cell("whisper-small", "prefill_32k", cfg=cfg,
+                      shape=ShapeConfig("prefill_32k", 256, 2, "prefill"))
+    assert cell.device.type == "cuda"
+    args = cell.inputs(11)
+    calls = cfg.n_encoder_layers + 2 * cfg.n_layers
+    ops.reset_launch_counts()
+    logits = cell.run(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == calls
+    assert ops.entry_launch_counts()["flash_attention_sm90"] == calls
+    assert logits.shape == (2, 64, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
+    kernel_attention = ops.attention
+    monkeypatch.setattr(ops, "attention", lambda *a, **kw: kernel_attention(
+        *a, impl="ref", **kw))
+    ops.reset_launch_counts()
+    plain = cell.run(*args)
+    assert ops.launch_counts()["flash_attention"] == 0
+    torch.testing.assert_close(logits.float(), plain.float(), atol=0.1,
+                               rtol=0.1)
+
+
+def test_cells_train_on_card(cuda):
+    """llava's smoke config as a train cell on the card, 8 x 64 (4
+    patches + 60 tokens), the reference's accumulation of 4 clamped to
+    the batch: the flash kernel launches twice per layer and microbatch
+    (forward and remat recompute) on the tensor cores; the loss and the
+    gradient norm are finite; every parameter changed and is finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config("llava-next-mistral-7b").smoke()
+    cell = build_cell("llava-next-mistral-7b", "train_4k", cfg=cfg,
+                      shape=ShapeConfig("train_4k", 64, 8, "train"))
+    assert cell.accum == 4
+    params, opt_state, batch = cell.inputs(12)
+    assert batch["patches"].shape == (8, cfg.n_patches, cfg.d_vision)
+    before = [t.clone() for t in tree_leaves(params)]
+    ops.reset_launch_counts()
+    params, opt_state, met = cell.run(params, opt_state, batch)
+    torch.cuda.synchronize()
+    want = 2 * cfg.n_layers * cell.accum
+    assert ops.launch_counts()["flash_attention"] == want
+    assert ops.entry_launch_counts()["flash_attention_sm90"] == want
+    assert np.isfinite(float(met["loss"])) and np.isfinite(
+        float(met["grad_norm"]))
+    for a, b in zip(before, tree_leaves(params)):
+        assert bool(torch.isfinite(b).all()) and not torch.equal(a, b)

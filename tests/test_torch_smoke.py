@@ -8,7 +8,8 @@ checks, prefill vs decode, clustered serving), so does its training phase (index
 curation, the trainer and its protocol at granite-20b's smoke config),
 so does its families phase (the six archs of the moe, vlm, ssm, hybrid
 and audio families at their smoke configs, and ``launch.serve``'s
-defaults),
+defaults), so does its cells phase (every cell of the reference's grid
+that it runs, at the smoke configs),
 its attention bound counts the unmasked pairs, and the script itself
 refuses to run without a CUDA device."""
 
@@ -374,3 +375,53 @@ def test_plain_attention_swaps_the_model_attention():
         assert ops.attention is not fn
         assert ops.attention.keywords == {"impl": "ref"}
     assert ops.attention is fn
+
+
+def test_cells_phase_runs_on_cpu():
+    """Phase 10 at the smoke configs: every cell of ``cell_grid`` (29:
+    prefill and decode for the ten archs, long_500k for three, train_4k
+    for one arch a family), each reckoned on ``meta`` first, run through
+    ``launch.cells.build_cell`` on the CPU, its train step's step 1 equal
+    to the plain attention's (on the CPU both are the plain version)."""
+    out = chip_smoke.run_cells_phase("cpu", "cpu")
+    grid = chip_smoke.cell_grid()
+    assert [(c["arch"], c["shape"]) for c in out["cells"]] == \
+        [(a, s) for a, shapes in grid for s in shapes]
+    assert len(out["cells"]) == 29
+    assert sum(s == "long_500k" for _, shapes in grid for s in shapes) == 3
+    for c in out["cells"]:
+        assert c["flops"] > 0 and c["state_bytes"] > 0
+        assert c["step_ms"] > 0 and c["share"] > 0
+        assert c["flash_checks"] == []
+        if c["kind"] == "train":
+            assert c["step1"]["loss_rel_err"] == 0
+            assert c["step1"]["grad_norm_rel_err"] == 0
+            assert c["params_changed_and_finite"]
+        if c["kind"] == "prefill":
+            # mamba2 runs no attention: its flash path is the plain one
+            assert ("kernel_bound_ms" in c) == (c["arch"] != "mamba2-780m")
+            assert c.get("kernel_bound_ms", 0) <= c["bound_ms"]
+    trains = {c["arch"] for c in out["cells"] if c["kind"] == "train"}
+    assert trains == set(chip_smoke.CELL_TRAIN_ARCHS)
+    assert out["cells"][-1]["shape"] == "train_4k"
+
+
+def test_cell_cuts_reckoned_for_the_card():
+    """Each card cell as phase 10 cuts it: the published widths, depth at
+    most the published; a prefill keeps its 32,768 tokens, and its
+    attention calls (for the flash-path bound) match
+    ``attention_calls``.  The state and predicted peak are checked
+    against the card by the phase itself, before each run."""
+    from repro_torch.configs import get_config
+
+    for arch, shapes in chip_smoke.cell_grid():
+        for sid in shapes:
+            cfg, shape = chip_smoke.cell_sizes(arch, sid, "cuda")
+            pub = get_config(arch)
+            assert (cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab_size) == \
+                (pub.d_model, pub.n_heads, pub.d_ff, pub.vocab_size)
+            assert cfg.n_layers <= pub.n_layers
+            if shape.kind == "prefill":
+                assert shape.seq_len == 32768
+                calls = chip_smoke.prefill_attention_calls(cfg, shape)
+                assert len(calls) == chip_smoke.attention_calls(cfg)
