@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--points N]
 
-Phases (1-3, 3b-3e, 4-10), each of which raises on failure (exit code
+Phases (1-3, 3b-3e, 4-11), each of which raises on failure (exit code
 != 0):
 
 1. device  — print the card (``nvidia-smi`` name and power limit, torch's
@@ -17,7 +17,9 @@ Phases (1-3, 3b-3e, 4-10), each of which raises on failure (exit code
              so does a spill in an ``eps_neighbor_counts`` kernel or in
              the ``lsh_hash_resolve`` kernel.
 3. main    — the ``soa-device`` streaming engine through the public API:
-             the paper's blobs set (n=200,000, d=10, 10 clusters) with
+             the paper's blobs set (d=10, 10 clusters; 150,000 of its
+             n=200,000 points by default, a cut printed for the script's
+             time; ``--points 200000`` runs it whole) with
              k=10, t=10, eps=0.75, inserted in batches of 1000 with deltas
              drained every batch, sampled ``label()`` calls every batch and
              ``labels()`` every 10th, then 25% of the points deleted in
@@ -188,7 +190,7 @@ Phases (1-3, 3b-3e, 4-10), each of which raises on failure (exit code
              to the path's, then with ids out of range and all-false and
              all-true masks, twice in a row, timed and profiled);
              ``eps_neighbor_counts`` at the
-             main path's points (200,000 x 10) and at phase 4's (10,000 x
+             paper's blobs (200,000 x 10) and at phase 4's (10,000 x
              10), beside
              a blocked ``torch.matmul`` composite (TF32 off; several
              calls, so no library column), at covertype's width (blobs
@@ -271,6 +273,28 @@ Phases (1-3, 3b-3e, 4-10), each of which raises on failure (exit code
              kernel is held against its plain version on the q / k / v of
              one layer of each distinct shape and mask (32,768 rows; one
              query head), and timed beside SDPA and its bound.
+11. mesh   — the models' mesh path (``repro_torch.sharding``,
+             ``launch.mesh``, the expert-parallel moe) in a
+             ``torch.distributed`` world of one process per card (NCCL),
+             spawned through ``torch.multiprocessing``.  With one card a
+             (1, 1) ``DeviceMesh`` (DTensor, ``local_map``, the flash
+             kernel on the rank's local heads): gemma3-27b at 6 layers and
+             granite-moe-1b-a400m at 24 (the expert-parallel branch at
+             ep = 1, its dropped tokens counted); with n >= 2 cards
+             also a world of min(4, n) processes for qwen1.5-110b x 4 and
+             dbrx-132b x 2 on (1, min(4, n)).  Each:
+             a bf16 prefill (MESH_PREFILL) through ``launch.cells.
+             build_cell`` on the mesh, MESH_DECODE_STEPS decode steps
+             (MESH_DECODE) and the ``ServingEngine`` with ``mesh=`` on
+             MESH_SERVE's requests (request clustering on ``soa-device``,
+             greedy tokens equal on every rank), each held against the
+             same model unsharded in the same run: exactly at world 1 for
+             dense archs; granite-moe in f32 at capacity n_experts /
+             top_k against the dense dispatch (MESH_F32_TOL); else
+             MESH_BF16_TOL.  The engine's greedy tokens equal the
+             unsharded engine's (at world > 1 both serve in f32).  Flash launches per rank equal the attention
+             calls, all sm90; prefill and decode-step ms, peak GB per
+             rank.  A failure in any rank fails the script.
 
 The line before the last is one JSON object with a ``kernels`` list (all
 five kernels and the ``lsh_hash_resolve`` and fused
@@ -281,8 +305,9 @@ path, 3e (a), with their check at a shard's sub-batch, and on phase 8
 (a)'s restored index and (b)'s curation; ``flash_attention``'s its
 launches in 8 (c) and (d) and its check at the trainer's shape, and its
 launches per forward of each arch of phase 9 with its checks at phase
-9's shapes, and its launches in each cell of phase 10 with its checks at
-32,768 rows); the last line is ``{"ok": true, "device": {...}}``.
+9's shapes, its launches in each cell of phase 10 with its checks at
+32,768 rows, and its launches per rank in phase 11); the last line is
+``{"ok": true, "device": {...}}``.
 ``--points`` cuts the main, dict and approx streams only (the cut is
 printed);
 d, k, t, eps and the batch never change.
@@ -305,12 +330,18 @@ PKG = ROOT / "src" / "repro_torch"
 
 D, K, T, EPS, BATCH, SEED = 10, 10, 10, 0.75, 1000, 0
 FULL_POINTS = 200_000          # DATASET_SPECS["blobs"][0]
+# the stream of phases 3-3e and 8 (a) by default: cut from FULL_POINTS
+# for the script's time (the whole script took 1,300.0 s of its 1,200 on
+# a slow host, 910.6 s on another, with phases 3-3e 55% of it and linear
+# in the points)
+STREAM_POINTS = 150_000
 DELETE_FRACTION = 0.25
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 # H100 SXM scalar rate outside the tensor cores: the data sheet's 67
 # TFLOP/s float32 counts a fused multiply-add as two operations, so a lone
 # add, multiply, compare or int32 operation issues at half of it
 SCALAR_OPS_PER_S = 67e12 / 2
+PROFILE_TRIES = 3              # profiler sessions before CUDA events
 KERNEL_SOURCES = {
     "lsh_hash": ("src/repro_torch/kernels/csrc/lsh_hash.cu",
                  "src/repro/kernels/lsh_hash.py:65"),
@@ -473,6 +504,12 @@ AUDIO_FRAMES = 1500            # whisper's 30 s encoder length (CROSS_LEN)
 # (tools/ssm_decode_study.py measures it).  The 32 layers of hymba-1.5b
 # read 5.4e-5-5.7e-5
 FAMILY_CHECK_TOKENS = 600
+# the serving engine takes a prompt one token a step, so phase 9's
+# serving time is ~(prompt + new tokens) decode steps of each arch: its
+# prompts are cut from SERVE_PROMPT_MIN..SERVE_PROMPT_MAX (8-64) tokens
+# to 8-16 for the script's time (hymba's serving took 69.9 s of a 205 s
+# phase on a slow host, 329 prompt tokens at ~0.2 s a step)
+FAMILY_SERVE_PROMPT = (8, 16)
 FAMILY_CHECK_TOL = {"mamba2-780m": 2e-3, "hymba-1.5b": LM_TOL}
 # the archs whose decode step is profiled
 FAMILY_PROFILE_ARCHS = ("mamba2-780m", "granite-moe-1b-a400m")
@@ -528,15 +565,16 @@ CELL_CUTS = {
     ("llava-next-mistral-7b", "decode_32k"): (10, 8),
     ("llava-next-mistral-7b", "train_4k"): (10, 8),
     # mamba2 carries state only: 9.7 GB at the full batch of 128.  Its
-    # and hymba's train steps are cut to half depth for the phase's time:
-    # at full depth they took 7.80 / 11.11 s a step (three steps a cell)
-    # on an NVIDIA H100 80GB HBM3 at 700 W, the SSD's chunk loop host-bound
+    # and hymba's train steps are cut to a quarter of their depth for the
+    # phase's time: at full depth they took 7.80 / 11.11 s a step (three
+    # steps a cell) on an NVIDIA H100 80GB HBM3 at 700 W, the SSD's chunk
+    # loop host-bound, and at half depth 5.34 / 5.85 s on a slow host
     ("mamba2-780m", "prefill_32k"): (None, 1),
-    ("mamba2-780m", "train_4k"): (24, 8),
+    ("mamba2-780m", "train_4k"): (12, 8),
     # hymba's cache at 500k: 21.5 GB at full depth
     ("hymba-1.5b", "prefill_32k"): (None, 1),
     ("hymba-1.5b", "decode_32k"): (None, 8),
-    ("hymba-1.5b", "train_4k"): (16, 8),
+    ("hymba-1.5b", "train_4k"): (8, 8),
     ("whisper-small", "prefill_32k"): (None, 1),
     ("whisper-small", "decode_32k"): (None, 16),
     ("whisper-small", "train_4k"): (None, 8),
@@ -2265,6 +2303,9 @@ def device_events(fn, runtime: bool = False):
         wall = time.perf_counter() - t0
     evs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
            if e.device_type == DeviceType.CUDA]
+    if not evs:
+        print("device time: a profiler session traced no device activity",
+              flush=True)
     if not runtime:
         return wall, evs
     calls = {}
@@ -2281,20 +2322,34 @@ def kernel_device_ms(fns, reps: int = 50):
     (name -> call), from the profiler: the mean duration of each device
     function whose name holds the kernel's, summed over those functions
     (``eps_neighbor_counts`` launches a norm pre-pass and the count
-    kernel); None where it traced none."""
-    def run():
-        for fn in fns.values():
-            for _ in range(reps):
-                fn()
-    _wall, evs = device_events(run)
+    kernel). A session may trace no device activity at all (CUPTI does
+    not always deliver it); a kernel that ``PROFILE_TRIES`` sessions
+    traced none of is timed with CUDA events instead, and the line
+    printed says so."""
     out = {}
-    for name in fns:
-        by_fn = {}
-        for ev, us in evs:
-            if name in ev:
-                by_fn.setdefault(ev, []).append(us)
-        out[name] = (sum(sum(v) / len(v) for v in by_fn.values()) / 1e3
-                     if by_fn else None)
+    for _try in range(PROFILE_TRIES):
+        missing = {name: fn for name, fn in fns.items() if name not in out}
+        if not missing:
+            break
+
+        def run():
+            for fn in missing.values():
+                for _ in range(reps):
+                    fn()
+        _wall, evs = device_events(run)
+        for name in missing:
+            by_fn = {}
+            for ev, us in evs:
+                if name in ev:
+                    by_fn.setdefault(ev, []).append(us)
+            if by_fn:
+                out[name] = sum(sum(v) / len(v) for v in by_fn.values()) / 1e3
+    for name, fn in fns.items():
+        if name not in out:
+            out[name] = time_ms(fn, reps=reps, warmup=1)
+            print(f"device time: the profiler traced no {name} launch in "
+                  f"{PROFILE_TRIES} sessions; its device_ms is CUDA events' "
+                  f"{out[name]:.5f} ms over {reps} calls", flush=True)
     return out
 
 
@@ -4281,7 +4336,7 @@ def family_sizes(device: str) -> dict:
                 "time_reps": 1}
     return {"smoke": False, "scale": 1, "frames": AUDIO_FRAMES,
             "check": FAMILY_CHECK_TOKENS, "serve_kv": SERVE_KV,
-            "prompt": (SERVE_PROMPT_MIN, SERVE_PROMPT_MAX),
+            "prompt": FAMILY_SERVE_PROMPT,
             "new": SERVE_NEW_TOKENS, "time_reps": 3}
 
 
@@ -5029,13 +5084,348 @@ def run_cells_phase(device: str, card: str) -> dict:
 
 
 
+# mesh phase (11): the models' mesh path (sharding.axes, launch.mesh,
+# the expert-parallel moe) in a torch.distributed world of one process
+# per card, NCCL.  World 1: a (1, 1) DeviceMesh — DTensor, local_map and
+# the flash kernel on each rank's local heads all run — for gemma3-27b
+# at phase 5's 6 layers (windowed and global caches) and
+# granite-moe-1b-a400m at its 24 layers (the expert-parallel branch at
+# ep = 1, capacity drops counted; held against the dense dispatch at a
+# capacity with no drops).  With n >= 2 cards also a (1, min(4, n)) mesh
+# for qwen1.5-110b and dbrx-132b at phase 10's prefill depths, held
+# against the same depth on one card.  Each arch: a prefill through
+# launch.cells.build_cell on the mesh (prefill_32k cut to MESH_PREFILL),
+# MESH_DECODE_STEPS decode steps (decode_32k cut to MESH_DECODE) and the
+# serving engine with mesh= on MESH_SERVE_REQUESTS requests, each held
+# against the model unsharded in the same run
+MESH_WORLD1_RUNS = (("gemma3-27b", 6), ("granite-moe-1b-a400m", 24))
+MESH_MULTI_RUNS = (("qwen1.5-110b", 4), ("dbrx-132b", 2))
+MESH_PREFILL = (1, 4096)            # batch, tokens
+MESH_DECODE = (8, 4096)             # batch, cache positions
+MESH_DECODE_STEPS = 8
+MESH_SERVE = dict(batch=4, kv_len=512, requests=8, prompt=(4, 8), new=4)
+# bf16 logits: the sharded path against the unsharded one where their
+# arithmetic differs (partial sums over model, the expert-parallel
+# dispatch's order of the expert mix): atol = rtol = 0.1 on logits of
+# unit scale, tests/test_torch_families.py's bf16 bound; at world 1 the
+# dense archs' mesh bodies run the unsharded arithmetic, so 0
+MESH_BF16_TOL = 0.1
+# granite-moe is held against the dense dispatch in f32 (bf16 rounds the
+# expert mix in another order, which 24 layers compound: 0.88 on logits
+# of scale 4.7 in the first card run): atol = rtol = 1e-3 over 24 layers
+MESH_F32_TOL = 1e-3
+
+
+def _mesh_run_arch(arch: str, layers: int, mesh, device,
+                   world: int) -> dict:
+    """One arch on ``mesh`` and unsharded (on this rank): prefill,
+    decode steps and the serving engine, each held against the other."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.models import moe as M
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.serving import Request, ServingEngine
+
+    out = {"arch": arch, "layers": layers}
+    moe = get_config(arch).family == "moe"
+    exact = world == 1 and not moe
+    pb, ps = MESH_PREFILL
+    db, ds = MESH_DECODE
+    pre = ShapeConfig("prefill_32k", ps, pb, "prefill")
+    dec = ShapeConfig("decode_32k", ds, db, "decode")
+    dev = torch.device(device)
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(SEED)
+
+    def cfg_at(no_drops=False):
+        # no_drops: capacity n_experts / top_k, so C >= the tokens routed
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        return cfg if not no_drops else dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k, dtype="float32")
+
+    def held(a, b):
+        f32 = b.dtype == torch.float32
+        a, b = a.float(), b.float()
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"mesh {arch}: logits not finite")
+        err = float((a - b).abs().max())
+        rel = MESH_F32_TOL if f32 else MESH_BF16_TOL
+        tol = 0.0 if exact else rel * (1.0 + float(b.abs().max()))
+        if err > tol:
+            raise AssertionError(f"mesh {arch}: sharded vs unsharded "
+                                 f"{err:.3e} > {tol:.3e}")
+        return err
+
+    # prefill: the mesh cell, then the same cell on this rank's card
+    cfgs = [(cfg_at(), "own")] + ([(cfg_at(True), "no_drops")]
+                                  if moe else [])
+    for cfg, tag in cfgs:
+        cell = build_cell(arch, "prefill_32k", mesh, cfg=cfg, shape=pre)
+        params, batch = cell.inputs(SEED)
+        cell.run(params, batch)                               # warm
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        M.reset_ep_drops()
+        logits = cell.run(params, batch)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()["flash_attention"]
+        sm90 = ops.entry_launch_counts().get("flash_attention_sm90", 0)
+        drops = M.ep_drops()
+        ms = _timed(lambda: cell.run(params, batch), device, 2)
+        rec = {"prefill_ms": ms, "flash_launches": launches,
+               "flash_sm90_launches": sm90, "ep_drops_prefill": drops}
+        if launches != attention_calls(cfg) or (
+                cfg.dtype == "bfloat16" and sm90 != launches):
+            raise AssertionError(f"mesh {arch}: flash launches {launches} "
+                                 f"({sm90} sm90) for "
+                                 f"{attention_calls(cfg)} attention calls")
+        if tag == "no_drops" or not moe:
+            # the unsharded cell on this card, from the same seed
+            one = build_cell(arch, "prefill_32k", device,
+                             cfg=dataclasses.replace(cfg_at(),
+                                                     dtype=cfg.dtype),
+                             shape=pre)
+            p1 = tree_map(lambda t: t.to_local(), params) if world == 1 \
+                else one.model.init(SEED)
+            b1 = {k: v.full_tensor() for k, v in batch.items()}
+            want = one.run(p1, b1)
+            rec["prefill_ms_unsharded"] = _timed(lambda: one.run(p1, b1),
+                                                 device, 2)
+            rec["prefill_max_abs_diff"] = held(logits.full_tensor(), want)
+            del p1, want
+        out[tag] = rec
+        del logits, params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # decode: MESH_DECODE_STEPS steps at scalar positions against caches
+    # filled from the seed, on the mesh and unsharded
+    for cfg, tag in cfgs:
+        cell = build_cell(arch, "decode_32k", mesh, cfg=cfg, shape=dec)
+        params, caches, token, pos = cell.inputs(SEED)
+        one = build_cell(arch, "decode_32k", device, cfg=cfg, shape=dec)
+        p1 = tree_map(lambda t: t.to_local(), params) if world == 1 else \
+            one.model.init(SEED)
+        _, c1, t1, _ = one.inputs(SEED, params=p1)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (MESH_DECODE_STEPS, db, 1)).astype(np.int32))
+        errs, times = [], []
+        M.reset_ep_drops()
+        for i in range(MESH_DECODE_STEPS):
+            p = torch.tensor(ds - MESH_DECODE_STEPS + i, dtype=torch.int32,
+                             device=dev)
+            tk = toks[i].to(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            lg, caches = cell.run(params, caches, tk, p)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            if tag == ("no_drops" if moe else "own"):
+                want, c1 = one.run(p1, c1, tk, p)
+                errs.append(held(lg.full_tensor(), want))
+        out[tag].update({"decode_step_ms": sorted(times)[len(times) // 2],
+                         "decode_step_ms_all": times,
+                         "ep_drops_decode": M.ep_drops()})
+        if errs:
+            out[tag]["decode_max_abs_diff"] = max(errs)
+        del params, caches, p1, c1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the serving engine with mesh= (request clustering on soa-device on
+    # every rank), against the unsharded engine; greedy tokens every rank
+    import torch.distributed as dist
+
+    sv = MESH_SERVE
+    # world > 1: f32, where the partial sums' order cannot move a greedy
+    # token (bf16's can), so the engine is held exactly; at world 1 the
+    # dense archs are exact in bf16 and granite-moe serves in f32
+    cfg = cfgs[-1][0] if world == 1 else dataclasses.replace(
+        cfgs[-1][0], dtype="float32")
+    from repro_torch.models.registry import build_model
+
+    model = build_model(cfg, device=dev)
+    params = model.init(SEED, mesh=mesh)
+    # the unsharded engine's weights: the mesh's own at world 1, else the
+    # same draw whole on this rank's card
+    p1 = tree_map(lambda t: t.to_local(), params) if world == 1 else \
+        model.init(SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(rng.integers(
+        sv["prompt"][0], sv["prompt"][1] + 1))) for _ in range(
+            sv["requests"])]
+    centres = rng.normal(size=(2, 8)) * 3
+    embeds = [centres[i % 2] + 0.05 * rng.normal(size=8)
+              for i in range(sv["requests"])]
+
+    def serve(model, prm, m):
+        eng = ServingEngine(model, prm, batch=sv["batch"],
+                            kv_len=sv["kv_len"], cluster_requests=True,
+                            cluster_backend="soa-device", mesh=m)
+        t0 = time.perf_counter()
+        for rid, pr in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=pr,
+                               max_new_tokens=sv["new"],
+                               embedding=embeds[rid]))
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eng.close()
+        return {r: list(q.out_tokens) for r, q in sorted(done.items())}, wall
+
+    toks_mesh, wall = serve(model, params, mesh)
+    every = [None] * world
+    dist.all_gather_object(every, toks_mesh)
+    if any(e != toks_mesh for e in every):
+        raise AssertionError(f"mesh {arch}: ranks chose different tokens")
+    if len(toks_mesh) != sv["requests"] or any(
+            len(v) != sv["new"] for v in toks_mesh.values()):
+        raise AssertionError(f"mesh {arch}: served {toks_mesh}")
+    serve_rec = {"wall_s": wall, "requests": len(toks_mesh),
+                 "tokens": sum(len(v) for v in toks_mesh.values())}
+    toks_one, wall1 = serve(model, p1, None)
+    agree = sum(a == b for r in toks_one for a, b in
+                zip(toks_one[r], toks_mesh[r]))
+    serve_rec.update(wall_s_unsharded=wall1, tokens_equal=agree,
+                     of=serve_rec["tokens"], dtype=cfg.dtype)
+    if (exact or cfg.dtype == "float32") and toks_one != toks_mesh:
+        raise AssertionError(f"mesh {arch}: greedy tokens differ from "
+                             f"the unsharded engine's")
+    out["serve"] = serve_rec
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, p1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_rank(rank: int, world: int, port: int, where: str,
+               arch_runs) -> None:
+    """One rank of a phase 11 world (a spawned process): the archs of
+    ``arch_runs`` on the world's production mesh, (1, world)."""
+    import torch
+
+    sys.path.insert(0, str(PKG.parent))
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_distributed, \
+        make_production_mesh
+
+    init_distributed("cuda", rank=rank, world_size=world,
+                     init_method=f"tcp://localhost:{port}")
+    ops.ensure_built()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = f"cuda:{torch.cuda.current_device()}"
+    mesh = make_production_mesh()
+    res = {"rank": rank, "archs": []}
+    for arch, layers in arch_runs:
+        t0 = time.perf_counter()
+        r = _mesh_run_arch(arch, layers, mesh, device, world)
+        r.update(mesh=list(mesh.shape), wall_s=time.perf_counter() - t0)
+        res["archs"].append(r)
+    Path(where, f"mesh_rank{rank}.json").write_text(json.dumps(res))
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_mesh_phase(card: str) -> dict:
+    """Phase 11: MESH_WORLD1_RUNS in a world of one process on a (1, 1)
+    mesh, then, with n >= 2 cards, MESH_MULTI_RUNS in a world of
+    min(4, n) processes, one per card (NCCL), on (1, min(4, n))."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    cards = torch.cuda.device_count()
+    parts = [("world1", 1, MESH_WORLD1_RUNS)]
+    if cards >= 2:
+        parts.append(("multi", min(4, cards), MESH_MULTI_RUNS))
+    t0 = time.perf_counter()
+    out = []
+    for tag, world, arch_runs in parts:
+        t1 = time.perf_counter()
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        with tempfile.TemporaryDirectory(dir=ROOT) as where:
+            mp.start_processes(_mesh_rank,
+                               args=(world, port, where, arch_runs),
+                               nprocs=world, join=True,
+                               start_method="spawn")
+            ranks = [json.loads(Path(where, f"mesh_rank{r}.json")
+                                .read_text()) for r in range(world)]
+        out.append({"part": tag, "world": world, "ranks": ranks,
+                    "wall_s": time.perf_counter() - t1})
+    return {"cards": cards, "parts": out,
+            "wall_s": time.perf_counter() - t0, "card": card}
+
+
+def print_mesh_phase(mesh: dict) -> None:
+    card = mesh["card"]
+    print(f"mesh: {mesh['cards']} card(s), NCCL; worlds "
+          f"{[p['world'] for p in mesh['parts']]}"
+          + ("; the multi-rank part (qwen1.5-110b, dbrx-132b on (1, n)) did "
+             "not run: one card — tests/test_torch_mesh.py carries its "
+             "semantics on gloo worlds of 2 and 4"
+             if mesh["cards"] == 1 else "") + f"  [{card}]", flush=True)
+    for part in mesh["parts"]:
+        ranks = part["ranks"]
+        for i, a in enumerate(ranks[0]["archs"]):
+            per = [r["archs"][i] for r in ranks]
+            own, nd = a["own"], a.get("no_drops", {})
+            held = nd or own
+            sv = a["serve"]
+            print(f"mesh: world {part['world']}: {a['arch']} x "
+                  f"{a['layers']}L on {tuple(a['mesh'])}: prefill "
+                  f"{own['prefill_ms']:.2f} ms (unsharded "
+                  f"{own.get('prefill_ms_unsharded', float('nan')):.2f}), "
+                  f"decode step {own['decode_step_ms']:.2f} ms; max |diff| "
+                  f"vs unsharded: prefill {held.get('prefill_max_abs_diff')}"
+                  f", decode {held.get('decode_max_abs_diff')}"
+                  + (f" (dense dispatch against the expert-parallel one at "
+                     f"capacity n_experts / top_k; at its own capacity "
+                     f"{own['ep_drops_prefill']} prefill / "
+                     f"{own['ep_drops_decode']} decode tokens dropped)"
+                     if nd else "")
+                  + f"; flash launches per rank "
+                  f"{[p['own']['flash_launches'] for p in per]} (sm90 "
+                  f"{[p['own']['flash_sm90_launches'] for p in per]}); peak "
+                  f"{[round(p['peak_gb'], 2) for p in per]} GB per rank; "
+                  f"serving ({sv['dtype']}) {sv['requests']} requests, "
+                  f"{sv['tokens']} tokens in {sv['wall_s']:.2f} s "
+                  f"(unsharded {sv['wall_s_unsharded']:.2f} s, "
+                  f"{sv['tokens_equal']}/{sv['of']} greedy tokens equal)"
+                  f"; part {a['wall_s']:.1f} s  [{card}]", flush=True)
+        print(f"mesh: world {part['world']}: {part['wall_s']:.1f} s  "
+              f"[{card}]", flush=True)
+    print(f"mesh: phase {mesh['wall_s']:.1f} s  [{card}]", flush=True)
+    print("mesh_path " + json.dumps(mesh), flush=True)
+
+
 # ---------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--points", type=int, default=FULL_POINTS,
-                    help="points in the stream (default: the paper's "
-                         "200,000); fewer is a cut and is printed")
+    ap.add_argument("--points", type=int, default=STREAM_POINTS,
+                    help="points in the stream (default 150,000 of the "
+                         "paper's 200,000); fewer than 200,000 is a cut "
+                         "and is printed")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        print(f"timeline: {phase} at {time.perf_counter() - t_start:.1f} s "
+              f"from the start", flush=True)
 
     if not (PKG / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: {PKG} not found; run from a checkout of the "
@@ -5056,6 +5446,7 @@ def main(argv=None) -> int:
     print(f"device: {kind} x{count}; nvidia-smi: {card}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
+    mark("phase 2 (build)")
     # 2. build
     from repro_torch.kernels import ops
 
@@ -5069,6 +5460,7 @@ def main(argv=None) -> int:
     print("build: eps_neighbor_counts ptxas -v (registers, spill bytes) "
           + json.dumps(build["eps_ptxas"]), flush=True)
 
+    mark("phase 3 (main path)")
     # 3. main path
     if args.points != FULL_POINTS:
         print(f"main: CUT — {args.points} points instead of "
@@ -5079,6 +5471,7 @@ def main(argv=None) -> int:
     metrics["build"] = build
     print("main_path " + json.dumps(metrics), flush=True)
 
+    mark("phase 3b (dict)")
     # 3b. dict path: batched-device over the same stream, held against
     #     the host soa engine's results of phase 3
     kept = last.pop("host_stream")
@@ -5100,6 +5493,7 @@ def main(argv=None) -> int:
     del dict_last
     gc.collect()
 
+    mark("phase 3c (approx)")
     # 3c. approx path: the sampled-core engine's device path (one masked
     #     bucket_insert_pass a batch) against its host twin and phase 3's
     #     host soa results; 3d. the tiered index (host) at the tier's
@@ -5141,6 +5535,7 @@ def main(argv=None) -> int:
     print("tiered_path " + json.dumps(tier), flush=True)
     del soa_c
 
+    mark("phase 3e (sharded)")
     # 3e. sharded path: the coordinator over four soa-device shards on the
     #     card, in process (a), as worker processes (b) and as TCP workers
     #     with replicas through a killed primary (c)
@@ -5185,6 +5580,7 @@ def main(argv=None) -> int:
     print("sharded_path " + json.dumps(sharded), flush=True)
     gc.collect()
 
+    mark("phase 4 (baselines)")
     # 4. baselines path
     print(f"baselines: CUT — Table 2 at {BASELINE_POINTS} points instead "
           f"of {TABLE2_POINTS}", flush=True)
@@ -5192,6 +5588,7 @@ def main(argv=None) -> int:
     base["card"] = card
     print("baselines " + json.dumps(base), flush=True)
 
+    mark("phase 5 (LM)")
     # 5. LM path: gemma3-27b prefill through the flash kernel, the kernel
     #    against its plain version, prefill vs decode, serving; then the
     #    kernel's timing and where a prefill / decode step spends its time
@@ -5209,6 +5606,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("phase 6 (kernels)")
     # 6. kernels, each with the launches of its own path
     launches = dict(metrics["launches"])
     launches["eps_neighbor_counts"] = \
@@ -5244,6 +5642,7 @@ def main(argv=None) -> int:
     print(f"main-path kernel time (launches x ms per call) / insert wall "
           f"time: {share:.4f}  [{card}]", flush=True)
 
+    mark("phase 7 (profile)")
     # 7. where the device time goes in a few insert batches at the main
     #    path's final state (the restored index; launches already read)
     window = profile_insert_window(last["restored"])
@@ -5261,6 +5660,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("phase 8 (train)")
     # 8. training path: (a) phase 3's index through save_index /
     #    restore_index on the card, (b) the trainer's curation on the
     #    card, (c) the trainer at full width, (d) its own protocol
@@ -5312,6 +5712,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("phase 9 (families)")
+    print(f"families: CUT — serving prompts of {FAMILY_SERVE_PROMPT[0]}-"
+          f"{FAMILY_SERVE_PROMPT[1]} tokens instead of {SERVE_PROMPT_MIN}-"
+          f"{SERVE_PROMPT_MAX}", flush=True)
     # 9. families: the moe, vlm, ssm, hybrid and audio archs at their
     #    published widths, each through a bf16 forward and clustered
     #    serving; launch.serve's defaults; the flash kernel at the shapes
@@ -5333,6 +5737,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("phase 10 (cells)")
     # 10. cells: the reference's (arch x shape) grid through
     #     launch.cells.build_cell, each cut printed, the flash kernel held
     #     against its plain version at 32,768 rows
@@ -5340,6 +5745,13 @@ def main(argv=None) -> int:
     print(f"cells: {len(cells['cells'])} cells; phase {cells['wall_s']:.1f}"
           f" s  [{card}]", flush=True)
     print("cells_path " + json.dumps(cells), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mark("phase 11 (mesh)")
+    # 11. mesh: the models' mesh path in a world of one process per card
+    mesh = run_mesh_phase(card)
+    print_mesh_phase(mesh)
     for k in kernels:
         if k["name"] == "flash_attention":
             k["families_launches"] = {
@@ -5362,10 +5774,16 @@ def main(argv=None) -> int:
             k["cells_checks"] = [dict(r, cell=f"{m['arch']} x {m['shape']}")
                                  for m in cells["cells"]
                                  for r in m["flash_checks"]]
+            k["mesh_launches_per_rank"] = {
+                f"{a['arch']} x {a['layers']}L on {a['mesh']}, rank "
+                f"{r['rank']}": a["own"]["flash_launches"]
+                for part in mesh["parts"] for r in part["ranks"]
+                for a in r["archs"]}
             k["train_launches"] = tc["flash_launches"]
             k["train_steps"] = tc["steps"]
             k["train_protocol_launches"] = td["flash_launches"]
             k["train_shape"] = ts
+    mark("the end")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

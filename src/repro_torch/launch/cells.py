@@ -1,22 +1,31 @@
-"""(arch × shape) cells on one card: the train, prefill or decode step
-of an architecture at one input shape, with its inputs' shapes.
+"""(arch × shape) cells: the train, prefill or decode step of an
+architecture at one input shape, with its inputs' shapes, on one card or
+on a mesh of cards.
 
-Mirror of ``repro.launch.cells``, with one device in place of a mesh:
+Mirror of ``repro.launch.cells``.  ``build_cell``'s third argument is a
+device (one card: today's cells) or a ``torch.distributed``
+``DeviceMesh`` (the reference's ``mesh``):
 
-* A :class:`Cell` holds ``device`` where the reference's holds ``mesh``,
-  and no shardings: on one device every logical axis is replicated, so
-  ``repro.sharding``'s specs have nothing to say (ROADMAP.md records
-  ``sharding/axes`` and ``launch/mesh`` as not applicable).
+* On a device, every logical axis is replicated: a :class:`Cell` holds
+  ``device`` and no shardings.
+* On a mesh, the prefill and decode cells place their inputs as the
+  reference's ``_tree_shardings`` and ``logical_to_spec`` do:
+  parameters and caches by their logical axes (DTensors, each rank
+  holding its block), tokens / patches / frames by ``batch``, and the
+  step returns logits placed as ``("batch", None, "act_vocab")`` (decode
+  ``("batch", "act_vocab")``).  The train cell on a mesh is not built
+  yet (``NotImplementedError``).
 * There is no ``lower``: a PyTorch step is not traced or compiled, so
   there is nothing to lower.  A cell is run (:meth:`Cell.run`), or
   analysed operation by operation on ``meta`` tensors
   (:func:`repro_torch.launch.step_analysis.analyze_step` over a cell
   built with ``device="meta"``).
-* ``args`` are ``meta`` tensors, the counterpart of the reference's
-  ``ShapeDtypeStruct`` trees: parameters from :func:`abstract_params`,
-  the optimizer state, the batch of :func:`batch_specs`, caches from the
-  model's ``decode_init``.  :meth:`Cell.inputs` makes real ones on the
-  cell's device from a seed.
+* ``args`` are ``meta`` tensors of the full shapes, the counterpart of
+  the reference's ``ShapeDtypeStruct`` trees: parameters from
+  :func:`abstract_params`, the optimizer state, the batch of
+  :func:`batch_specs`, caches from the model's ``decode_init``.
+  :meth:`Cell.inputs` makes real ones on the cell's device (or mesh)
+  from a seed.
 * No donation.  The reference donates params and optimizer state to the
   train step and the caches to the decode step.  Here the train step's
   AdamW writes the new parameters and moments into the tensors it is
@@ -24,6 +33,12 @@ Mirror of ``repro.launch.cells``, with one device in place of a mesh:
   and leaves the ones it was given as they were
   (``models.attention.decode_attention_block``), so the caller drops the
   old ones.
+
+``python -m repro_torch.launch.cells --arch A --shape S --mesh DxM``
+runs one prefill or decode cell on a mesh, one process per card:
+``torchrun --nproc-per-node 4 -m repro_torch.launch.cells --arch
+qwen1.5-110b --shape prefill_32k --mesh 1x4 --layers 4 --seq 4096
+--batch 1`` (``--device cpu`` for a gloo world here).
 
 The three kinds are the reference's: ``train`` (``make_train_step`` with
 AdamW at ``warmup_cosine(3e-4, 100, 10_000)``, the accumulation clamped
@@ -36,7 +51,7 @@ position against caches of ``S``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,7 +61,13 @@ from ..configs import ArchConfig, ShapeConfig, get_config, get_shape
 from ..models.registry import ModelAPI, build_model
 from ..optim import AdamW, warmup_cosine
 from ..optim.adamw import tree_map
+from ..sharding.axes import distribute, local_block
 from ..training import make_train_step
+
+#: the logical axes of each batch key (the reference's ``batch_specs``)
+BATCH_AXES = {"tokens": ("batch", None), "labels": ("batch", None),
+              "patches": ("batch", None, None),
+              "frames": ("batch", None, None)}
 
 # per-(arch, shape) gradient-accumulation overrides, the reference's
 # values (it sized them for 16 GB chips; build_cell clamps them to the
@@ -141,6 +162,7 @@ class Cell:
     shape_cfg: ShapeConfig
     accum: Optional[int] = None
     optimizer: Optional[AdamW] = None
+    mesh: Any = None
 
     def run(self, *args):
         return self.step_fn(*args)
@@ -151,57 +173,87 @@ class Cell:
         a zero optimizer state and a batch (train), a batch (prefill), or
         caches filled from ``seed``, a (B, 1) int32 token and the position
         ``S - 1``, so that the step reads the whole cache (decode)."""
+        mesh = self.mesh
         if params is None:
-            params = self.model.init(seed)
+            params = self.model.init(seed, mesh=mesh)
         if self.kind == "train":
             batch = make_batch(batch_specs(self.cfg, self.shape_cfg, True),
                                self.cfg, seed, self.device)
             return params, self.optimizer.init(params), batch
         if self.kind == "prefill":
-            return params, make_batch(batch_specs(self.cfg, self.shape_cfg,
-                                                  False),
-                                      self.cfg, seed, self.device)
+            batch = make_batch(batch_specs(self.cfg, self.shape_cfg, False),
+                               self.cfg, seed, self.device)
+            if mesh is not None:
+                batch = {k: distribute(v, BATCH_AXES[k], mesh)
+                         for k, v in batch.items()}
+            return params, batch
         B, S = self.shape_cfg.global_batch, self.shape_cfg.seq_len
-        caches = self.model.decode_init(B, S)
+        caches = self.model.decode_init(B, S, mesh=mesh)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        tree_map(lambda t: t.normal_(generator=gen), caches)
+
+        def fill(t):
+            if mesh is None:
+                return t.normal_(generator=gen)
+            # the unsharded cell's draw, leaf by leaf, then this block
+            full = torch.empty(t.shape, dtype=t.dtype, device=self.device)
+            full.normal_(generator=gen)
+            t.to_local().copy_(local_block(full, t.placements, mesh))
+            return t
+
+        tree_map(fill, caches)
         token = make_batch({"t": Spec((B, 1), torch.int32)}, self.cfg, seed,
                            self.device)["t"]
+        if mesh is not None:
+            token = distribute(token, BATCH_AXES["tokens"], mesh)
         pos = torch.tensor(S - 1, dtype=torch.int32, device=self.device)
         return params, caches, token, pos
 
 
-def _prefill_fn(model: ModelAPI) -> Callable:
+def _prefill_fn(model: ModelAPI, mesh=None) -> Callable:
     def prefill(params, batch):
         with torch.no_grad():
-            return model.forward(params, batch)
+            return model.forward(params, batch, mesh)
     return prefill
 
 
-def _decode_fn(model: ModelAPI) -> Callable:
+def _decode_fn(model: ModelAPI, mesh=None) -> Callable:
     def decode(params, caches, token, pos):
         with torch.no_grad():
-            return model.decode_step(params, caches, token, pos)
+            return model.decode_step(params, caches, token, pos, mesh=mesh)
     return decode
 
 
-def build_cell(arch_id: str, shape_id: str,
-               device: Union[str, torch.device] = "cuda",
+def _mesh_device(mesh) -> torch.device:
+    """This rank's device of ``mesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def build_cell(arch_id: str, shape_id: str, device="cuda",
                grad_accum: Optional[int] = None,
                cfg: Optional[ArchConfig] = None,
                shape: Optional[ShapeConfig] = None) -> Cell:
     """The cell of ``arch_id`` × ``shape_id`` on ``device`` (default the
-    card; ``"meta"`` to analyse it, ``"cpu"`` to run it here).  ``cfg``
-    and ``shape`` replace the registered ones (a depth or batch cut)."""
+    card; ``"meta"`` to analyse it, ``"cpu"`` to run it here) or on a
+    ``DeviceMesh``.  ``cfg`` and ``shape`` replace the registered ones (a
+    depth or batch cut)."""
     cfg = cfg if cfg is not None else get_config(arch_id)
     shape = shape if shape is not None else get_shape(shape_id)
-    dev = torch.device(device)
+    mesh = None
+    if not isinstance(device, (str, torch.device)):
+        mesh, dev = device, _mesh_device(device)
+    else:
+        dev = torch.device(device)
     model = build_model(cfg, device=dev)
     params = abstract_params(model)
     common = dict(arch=arch_id, shape=shape_id, cfg=cfg, kind=shape.kind,
-                  device=dev, model=model, shape_cfg=shape)
+                  device=dev, model=model, shape_cfg=shape, mesh=mesh)
 
     if shape.kind == "train":
+        if mesh is not None:
+            raise NotImplementedError("the train cell on a mesh is not "
+                                      "built yet (ROADMAP.md Queue 1)")
         accum = grad_accum or ACCUM_OVERRIDES.get((arch_id, shape_id),
                                                   cfg.grad_accum)
         # microbatches must stay whole over the data-parallel extent,
@@ -218,12 +270,77 @@ def build_cell(arch_id: str, shape_id: str,
     if shape.kind == "prefill":
         batch = {k: s.meta() for k, s in
                  batch_specs(cfg, shape, with_labels=False).items()}
-        return Cell(step_fn=_prefill_fn(model), args=(params, batch),
+        return Cell(step_fn=_prefill_fn(model, mesh), args=(params, batch),
                     **common)
 
     B, S = shape.global_batch, shape.seq_len
     caches = build_model(cfg, device="meta").decode_init(B, S)
     token = Spec((B, 1), torch.int32).meta()
     pos = Spec((), torch.int32).meta()
-    return Cell(step_fn=_decode_fn(model), args=(params, caches, token, pos),
-                **common)
+    return Cell(step_fn=_decode_fn(model, mesh),
+                args=(params, caches, token, pos), **common)
+
+
+def main(argv=None) -> int:
+    """Run one prefill or decode cell on a (data, model) mesh of this
+    ``torchrun`` world (by default :func:`.mesh.make_production_mesh`);
+    rank 0 prints the logits' shape and placements, whether they are
+    finite, and the step's milliseconds (the host clock, after a
+    warm-up).  A world this call started is closed at the end."""
+    import argparse
+    import time
+
+    import torch.distributed as dist
+
+    from ..configs import ARCH_IDS, SHAPES
+    from .mesh import init_distributed, make_mesh, make_production_mesh
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=list(ARCH_IDS))
+    ap.add_argument("--shape", required=True, choices=[
+        s for s in SHAPES if get_shape(s).kind != "train"])
+    ap.add_argument("--mesh", default="",
+                    help="data x model (default 1 x the world)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--layers", type=int, default=0, help="a depth cut")
+    ap.add_argument("--seq", type=int, default=0, help="a sequence cut")
+    ap.add_argument("--batch", type=int, default=0, help="a batch cut")
+    ap.add_argument("--smoke", action="store_true")
+    args = ap.parse_args(argv)
+
+    started = not dist.is_initialized()
+    rank, _ = init_distributed(args.device)
+    mesh = make_mesh(tuple(int(v) for v in args.mesh.split("x")),
+                     ("data", "model")) if args.mesh else \
+        make_production_mesh()
+    cfg = get_config(args.arch)
+    cfg = cfg.smoke() if args.smoke else cfg
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    shape = get_shape(args.shape)
+    shape = dataclasses.replace(shape, seq_len=args.seq or shape.seq_len,
+                                global_batch=args.batch
+                                or shape.global_batch)
+    cell = build_cell(args.arch, args.shape, mesh, cfg=cfg, shape=shape)
+    inputs = cell.inputs(0)
+    out = cell.run(*inputs)
+    logits = out[0] if cell.kind == "decode" else out
+    finite = bool(torch.isfinite(logits.to_local()).all())
+    if args.device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cell.run(*inputs)
+    if args.device == "cuda":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if rank == 0:
+        print(f"{args.arch} x {args.shape} on {tuple(mesh.shape)}: logits "
+              f"{tuple(logits.shape)} {list(logits.placements)}, finite "
+              f"{finite}, {ms:.2f} ms", flush=True)
+    if started:
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -19,6 +19,16 @@ analysis), and in place of ``memory_analysis``:
 * ``peak_bytes_per_device``: that state plus the most the step's own
   tensors hold at once (``analyze_step``).
 
+``--mesh 1x4`` / ``--mesh 2x2`` (data x model) records, per cell, what
+one card of four holds when the cell's parameters, optimizer state,
+caches and inputs are laid out by their logical axes
+(``sharding.logical_to_spec`` over a ``(data, model)`` mesh of that
+shape, as the reference's per-mesh records are): ``state_bytes_per_card``
+(the largest block, every rank's being the same) and ``fits_mesh``
+(within one card's 80 GB) — which published cells fit four H100s whole.
+These records carry no step analysis (``mesh`` = ``"1x4"`` or ``"2x2"``,
+``chips`` = 4); the reckoning is host-only work on ``meta``.
+
 Records go to ``results/torch_dryrun.json`` (merged over the records
 already there, cell by cell); ``python -m repro_torch.launch.roofline``
 reads them.  Exit status 1 when any cell failed, as the reference's.
@@ -29,6 +39,7 @@ Usage:
       --shape long_500k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --smoke \\
       --out /tmp/smoke.json     # every cell, smoke configs, shapes / 32
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh 1x4
 """
 
 from __future__ import annotations
@@ -39,11 +50,14 @@ import json
 import time
 import traceback
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Optional
 
 from ..configs import (ARCH_IDS, SHAPES, ArchConfig, ShapeConfig,
                        cell_supported, get_config, get_shape)
-from .cells import build_cell
+from ..optim.adamw import tree_leaves
+from ..sharding.axes import local_shape, logical_to_spec, tree_zip_map
+from .cells import BATCH_AXES, build_cell
 from .step_analysis import analyze_step, tree_bytes
 
 RESULTS = Path(__file__).resolve().parents[3] / "results"
@@ -51,6 +65,56 @@ MESH = "1xH100"
 CARD_BYTES = 80e9   # one H100 SXM's HBM3 (data sheet)
 #: ``--smoke`` cuts each shape's sequence and batch by this factor
 SMOKE_DIVISOR = 32
+#: the (data, model) meshes of four cards ``--mesh`` reckons
+MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
+
+
+def host_mesh(shape) -> SimpleNamespace:
+    """A stand-in for a (data, model) mesh of ``shape``: its axis names
+    and extents, which is all the spec rules read."""
+    return SimpleNamespace(axis_names=("data", "model"),
+                           devices=SimpleNamespace(shape=tuple(shape)))
+
+
+def _block_bytes(axes, t, mesh) -> int:
+    spec = logical_to_spec(axes, tuple(t.shape), mesh)
+    n = 1
+    for d in local_shape(tuple(t.shape), spec, mesh):
+        n *= d
+    return n * t.element_size()
+
+
+def mesh_state_bytes(cell, mesh) -> int:
+    """Bytes one rank holds of ``cell``'s state laid out on ``mesh``:
+    parameters (and AdamW's moments) by the parameters' axes, caches by
+    the caches', the batch by ``batch``; scalars whole."""
+    paxes = cell.model.axes()
+    total = 0
+
+    def add(axes, tree):
+        nonlocal total
+        total += sum(tree_leaves(tree_zip_map(
+            lambda ax, t: _block_bytes(ax, t, mesh), axes, tree)))
+
+    if cell.kind == "train":
+        params, opt, batch = cell.args
+        add(paxes, params)
+        add(paxes, opt["m"])
+        add(paxes, opt["v"])
+        total += sum(t.numel() * t.element_size() for k, t in opt.items()
+                     if k not in ("m", "v"))
+    elif cell.kind == "prefill":
+        params, batch = cell.args
+        add(paxes, params)
+    else:
+        params, caches, token, pos = cell.args
+        add(paxes, params)
+        add(cell.model.decode_axes(), caches)
+        batch = {"tokens": token}
+        total += pos.numel() * pos.element_size()
+    for k, t in batch.items():
+        total += _block_bytes(BATCH_AXES[k], t, mesh)
+    return total
 
 
 def smoke_shape(shape: ShapeConfig) -> ShapeConfig:
@@ -119,6 +183,36 @@ def analyze_cell(arch: str, shape_id: str, cfg: Optional[ArchConfig] = None,
     return rec
 
 
+def run_mesh_cell(arch: str, shape: str, mesh_name: str,
+                  smoke: bool = False) -> dict:
+    """The per-card state of a cell on a four-card mesh (no analysis)."""
+    rec = {"arch": arch, "shape": shape, "mesh": mesh_name, "chips": 4}
+    ok, why = cell_supported(arch, shape)
+    if not ok:
+        rec.update(status="skipped", reason=why)
+        return rec
+    try:
+        cfg = get_config(arch).smoke() if smoke else None
+        sc = smoke_shape(get_shape(shape)) if smoke else None
+        cell = build_cell(arch, shape, device="meta", cfg=cfg, shape=sc)
+        per_card = mesh_state_bytes(cell, host_mesh(MESHES[mesh_name]))
+        rec.update(status="ok", state_bytes=tree_bytes(*cell.args),
+                   state_bytes_per_card=per_card,
+                   fits_mesh=per_card <= CARD_BYTES)
+        if smoke:
+            rec["smoke"] = True
+        print(f"[{arch} × {shape} × {mesh_name}] state "
+              f"{rec['state_bytes'] / 1e9:.2f} GB, per card "
+              f"{per_card / 1e9:.2f} GB (fits: {rec['fits_mesh']})",
+              flush=True)
+    except Exception as e:  # noqa: BLE001 — a failed cell is a record
+        rec.update(status="error", error=f"{type(e).__name__}: {e}",
+                   traceback=traceback.format_exc()[-2000:])
+        print(f"[{arch} × {shape} × {mesh_name}] FAILED: {rec['error']}",
+              flush=True)
+    return rec
+
+
 def run_cell(arch: str, shape: str, grad_accum=None,
              smoke: bool = False) -> dict:
     rec = {"arch": arch, "shape": shape, "mesh": MESH, "chips": 1}
@@ -165,14 +259,21 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced same-family configs at shapes cut "
                          "by SMOKE_DIVISOR: a quick check of every cell")
+    ap.add_argument("--mesh", default=MESH, choices=[MESH, *MESHES],
+                    help="1xH100 (default): the step analysis on one card; "
+                         "1x4 / 2x2: the per-card state on four")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch and not args.all else list(ARCH_IDS)
     shapes = [args.shape] if args.shape and not args.all else list(SHAPES)
-    records = [run_cell(arch, shape, grad_accum=args.grad_accum,
-                        smoke=args.smoke)
-               for arch in archs for shape in shapes]
+    if args.mesh == MESH:
+        records = [run_cell(arch, shape, grad_accum=args.grad_accum,
+                            smoke=args.smoke)
+                   for arch in archs for shape in shapes]
+    else:
+        records = [run_mesh_cell(arch, shape, args.mesh, smoke=args.smoke)
+                   for arch in archs for shape in shapes]
     out = Path(args.out) if args.out else RESULTS / "torch_dryrun.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     existing = []

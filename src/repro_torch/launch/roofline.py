@@ -78,6 +78,8 @@ def build_table(dryrun_json: Optional[Path] = None) -> List[Dict]:
     path = dryrun_json or (RESULTS / "torch_dryrun.json")
     rows = []
     for rec in json.loads(Path(path).read_text()):
+        if rec["mesh"] != "1xH100":
+            continue    # a --mesh record carries per-card state, no counts
         if rec.get("status") != "ok":
             rows.append({
                 "arch": rec["arch"], "shape": rec["shape"],

@@ -3,8 +3,9 @@
 Mirror of ``repro.launch.train`` on one device: config -> model ->
 optimizer -> curated data pipeline -> train loop with heartbeats,
 straggler tracking, async checkpointing and checkpoint-restart.  The
-reference's flags, plus ``--device`` (default ``cuda``); the host mesh
-and its sharding have no counterpart on one card.  On the card every
+reference's flags, plus ``--device`` (default ``cuda``); the
+reference's host mesh (a train step sharded over a ``DeviceMesh``) is
+the next slice's, after the models' prefill and decode.  On the card every
 layer's attention runs the hand-written flash kernel in the forward
 (and again in the remat recompute); its gradient is plain PyTorch.
 

@@ -9,9 +9,11 @@ reference's tree as numpy arrays (``jax.tree.map(np.asarray, params)``),
 experts stay stacked: (X, E, F)) and moves every leaf to ``device`` in
 the same dtype, so both packages compute the same model: the ssm
 subtree, hybrid's ``comb``, a vlm's ``vision_proj`` and whisper's
-``frontend`` / ``ln_enc`` come across as they are.  Only the tests need
-this: the port's own ``init`` draws its weights from a
-``torch.Generator``.
+``frontend`` / ``ln_enc`` come across as they are.  With ``mesh=`` the
+tree is then placed on the mesh by the port's logical axes
+(``registry.shard_params``), so both packages compute the same function
+on the same mesh.  Only the tests need this: the port's own ``init``
+draws its weights from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -39,8 +41,8 @@ def _first_leaf(node):
     return np.asarray(node)
 
 
-def params_from_jax(np_params: Dict[str, Any], cfg,
-                    device="cpu") -> Dict[str, Any]:
+def params_from_jax(np_params: Dict[str, Any], cfg, device="cpu",
+                    mesh=None) -> Dict[str, Any]:
     stacks = {"layers": cfg.n_layers, "dec_layers": cfg.n_layers,
               "enc_layers": cfg.n_encoder_layers}
     out = {}
@@ -53,4 +55,8 @@ def params_from_jax(np_params: Dict[str, Any], cfg,
             raise ValueError(f"the tree's {name} has {n} layers, cfg "
                              f"{stacks[name]}")
         out[name] = [_tree(node, device, i) for i in range(n)]
-    return out
+    if mesh is None:
+        return out
+    from .registry import build_model, shard_params
+
+    return shard_params(out, build_model(cfg, device=device).axes(), mesh)

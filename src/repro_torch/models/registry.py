@@ -7,8 +7,18 @@ unless the caller asks for the CPU — and its ``init`` and
 ``decode_init`` allocate there.  ``forward`` reads ``batch["tokens"]``,
 a vlm's ``batch["patches"]`` and audio's ``batch["frames"]``; ``loss``
 is the reference's ``lm_loss`` / ``encdec_loss`` (the training path:
-``repro_torch.training``).  The reference's ``mesh`` arguments and
-sharding axes have no counterpart on one card.
+``repro_torch.training``).
+
+The reference's ``init`` returns ``(params, axes)`` and ``decode_init``
+``(caches, axes)``; here ``init`` and ``decode_init`` return the tensors
+and :attr:`ModelAPI.axes` / :attr:`ModelAPI.decode_axes` the logical
+axes trees.  ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``, one
+process per device) places them by those axes — ``init(seed,
+mesh=mesh)`` draws each leaf whole from the seed and keeps this rank's
+block, so a sharded model has the unsharded one's weights, and
+:func:`shard_params` places a full tree — and ``forward(params, batch,
+mesh)`` / ``decode_step(..., mesh=mesh)`` run the models' mesh path,
+returning DTensor logits (``full_tensor()`` gathers them).
 """
 
 from __future__ import annotations
@@ -18,7 +28,9 @@ from typing import Any, Callable, Optional, Union
 
 import torch
 
+from ..sharding.axes import distribute, tree_zip_map
 from . import encdec as ED
+from . import layers as L
 from . import transformer as T
 
 
@@ -26,12 +38,20 @@ from . import transformer as T
 class ModelAPI:
     cfg: Any
     device: torch.device
-    init: Callable         # (seed or torch.Generator) -> params
+    init: Callable         # (seed or torch.Generator, mesh=None) -> params
     loss: Callable         # (params, batch) -> (loss, metrics)
-    forward: Callable      # (params, batch) -> logits  (prefill)
-    decode_init: Callable  # (batch, kv_len) -> caches
-    decode_step: Callable  # (params, caches, token, pos, active=None)
-    #                        -> (logits, caches)
+    forward: Callable      # (params, batch, mesh=None) -> logits (prefill)
+    decode_init: Callable  # (batch, kv_len, mesh=None) -> caches
+    decode_step: Callable  # (params, caches, token, pos, active=None,
+    #                         mesh=None) -> (logits, caches)
+    axes: Callable         # () -> the parameters' logical axes tree
+    decode_axes: Callable  # () -> the caches' logical axes tree
+
+
+def shard_params(params, axes, mesh):
+    """A full parameter tree (the same on every rank) placed on ``mesh``
+    by its logical ``axes``: each rank keeps its block."""
+    return tree_zip_map(lambda ax, t: distribute(t, ax, mesh), axes, params)
 
 
 def build_model(cfg, device: Optional[Union[str, torch.device]] = None
@@ -41,39 +61,46 @@ def build_model(cfg, device: Optional[Union[str, torch.device]] = None
     if not audio:
         T._check_family(cfg)
     dev = torch.device(device or "cuda")
+    init_fn = ED.init_encdec if audio else T.init_lm
 
-    def init(seed: Union[int, torch.Generator] = 0):
+    def init(seed: Union[int, torch.Generator] = 0, mesh=None):
         gen = seed
         if not isinstance(gen, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(seed))
         if gen.device != dev:
             raise ValueError(f"generator on {gen.device}, model on {dev}")
-        return ED.init_encdec(cfg, gen) if audio else T.init_lm(cfg, gen)
+        if mesh is None:
+            return init_fn(cfg, gen)
+        with L.placing(lambda t, ax: distribute(t, ax, mesh)):
+            return init_fn(cfg, gen)
 
+    common = dict(cfg=cfg, device=dev, init=init,
+                  axes=lambda: init_fn(cfg, None))
     if audio:
-        def forward(params, batch):
-            enc = ED.encode(params, cfg, batch["frames"])
-            return ED.decode_train(params, cfg, batch["tokens"], enc)
+        def forward(params, batch, mesh=None):
+            enc = ED.encode(params, cfg, batch["frames"], mesh)
+            return ED.decode_train(params, cfg, batch["tokens"], enc, mesh)
 
         return ModelAPI(
-            cfg=cfg, device=dev, init=init, forward=forward,
+            forward=forward,
             loss=lambda params, batch: ED.encdec_loss(params, cfg, batch),
-            decode_init=lambda batch, kv_len: ED.init_decode_state(
-                cfg, batch, kv_len, dev),
-            decode_step=lambda params, caches, token, pos, active=None:
-                ED.encdec_decode_step(params, cfg, caches, token, pos,
-                                      active),
-        )
+            decode_init=lambda batch, kv_len, mesh=None: ED.init_decode_state(
+                cfg, batch, kv_len, dev, mesh=mesh),
+            decode_step=lambda params, caches, token, pos, active=None,
+            mesh=None: ED.encdec_decode_step(params, cfg, caches, token, pos,
+                                             active, mesh),
+            decode_axes=lambda: ED.decode_axes(cfg), **common)
 
-    def forward(params, batch):
+    def forward(params, batch, mesh=None):
         return T.lm_forward(params, cfg, batch["tokens"],
-                            batch.get("patches"))[0]
+                            batch.get("patches"), mesh)[0]
 
     return ModelAPI(
-        cfg=cfg, device=dev, init=init, forward=forward,
+        forward=forward,
         loss=lambda params, batch: T.lm_loss(params, cfg, batch),
-        decode_init=lambda batch, kv_len: T.init_decode_state(
-            cfg, batch, kv_len, dev),
-        decode_step=lambda params, caches, token, pos, active=None:
-            T.lm_decode_step(params, cfg, caches, token, pos, active),
-    )
+        decode_init=lambda batch, kv_len, mesh=None: T.init_decode_state(
+            cfg, batch, kv_len, dev, mesh=mesh),
+        decode_step=lambda params, caches, token, pos, active=None,
+        mesh=None: T.lm_decode_step(params, cfg, caches, token, pos, active,
+                                    mesh),
+        decode_axes=lambda: T.decode_axes(cfg), **common)

@@ -33,6 +33,20 @@ per attention layer and step.  Prefill and decode take no gradient.
 
 A family the reference does not know raises ``ValueError``, as its
 ``_layer_fwd`` does.
+
+``mesh=`` (a ``DeviceMesh``) runs the same functions on parameters and
+caches placed by their logical axes (``models.registry.shard_params``,
+``init_decode_state(..., mesh=)``), with the reference's activation
+constraints as ``redistribute`` calls: the embedding's output
+``("batch", None, "act_mlp")`` then the residual stream ``("batch",
+seq, "act_embed")`` (batch over the data ranks, whole over ``model``),
+decode's ``(None, None, "act_decode_embed")`` (every row, the embed dim
+over ``data``: weight-stationary decode), logits ``("batch", None,
+"act_vocab")``.  moe layers take :func:`.moe.moe_block`'s
+expert-parallel branch.  ``init_lm(cfg, None)`` and :func:`decode_axes`
+give the logical axes of the parameters and the caches (the reference's
+second return values, without its ``layers`` axis: the port's layers are
+a list).
 """
 
 from __future__ import annotations
@@ -42,6 +56,8 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding import shard_activation
+from ..sharding.axes import zeros as mesh_zeros
 from . import attention as A
 from . import layers as L
 from . import moe as M
@@ -61,26 +77,29 @@ def _check_family(cfg) -> None:
 # --------------------------------------------------------------------- #
 # init
 # --------------------------------------------------------------------- #
+def _norm(gen, cfg, dtype):
+    return L.declare(gen, {"w": ((cfg.d_model,), ("embed_r",), 0.0)}, dtype)
+
+
 def _init_layer(gen: torch.Generator, cfg, dtype) -> Dict[str, Any]:
     fam = cfg.family
-    zeros = {"w": ((cfg.d_model,), 0.0)}
     p: Dict[str, Any] = {}
     if fam in ATTN_FAMILIES:
         p["attn"] = A.init_attention(gen, cfg, dtype)
-        p["ln_attn"] = L.declare(gen, zeros, dtype)
+        p["ln_attn"] = _norm(gen, cfg, dtype)
     if fam in ("dense", "vlm", "hybrid"):
         p["mlp"] = L.init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype)
-        p["ln_mlp"] = L.declare(gen, zeros, dtype)
+        p["ln_mlp"] = _norm(gen, cfg, dtype)
     if fam == "moe":
         p["moe"] = M.init_moe(gen, cfg, dtype)
-        p["ln_mlp"] = L.declare(gen, zeros, dtype)
+        p["ln_mlp"] = _norm(gen, cfg, dtype)
     if fam in SSM_FAMILIES:
         p["ssm"] = S.init_mamba2(gen, cfg, dtype)
-        p["ln_ssm"] = L.declare(gen, zeros, dtype)
+        p["ln_ssm"] = _norm(gen, cfg, dtype)
     if fam == "hybrid":
-        p["comb"] = L.declare(gen, {"norm_attn": ((cfg.d_model,), 0.0),
-                                    "norm_ssm": ((cfg.d_model,), 0.0)},
-                              dtype)
+        p["comb"] = L.declare(gen, {
+            "norm_attn": ((cfg.d_model,), ("embed_r",), 0.0),
+            "norm_ssm": ((cfg.d_model,), ("embed_r",), 0.0)}, dtype)
     return p
 
 
@@ -104,23 +123,25 @@ def layer_metadata(cfg) -> Dict[str, List[Any]]:
             "window": [m["window"] for m in metas]}
 
 
-def init_lm(cfg, gen: torch.Generator) -> Dict[str, Any]:
+def init_lm(cfg, gen: Optional[torch.Generator]) -> Dict[str, Any]:
     """Parameters in ``cfg.param_dtype`` on ``gen``'s device: the
-    reference's shapes and init stds, drawn from ``gen``."""
+    reference's shapes and init stds, drawn from ``gen``; ``gen=None``:
+    their logical axes."""
     _check_family(cfg)
     dtype = L.dtype_of(cfg.param_dtype)
     params: Dict[str, Any] = {
         "embed": L.init_embedding(gen, cfg.padded_vocab, cfg.d_model, dtype),
         "layers": [_init_layer(gen, cfg, dtype)
                    for _ in range(cfg.n_layers)],
-        "ln_f": L.declare(gen, {"w": ((cfg.d_model,), 0.0)}, dtype),
+        "ln_f": _norm(gen, cfg, dtype),
     }
     if not cfg.tie_embeddings:
         params["head"] = L.init_lm_head(gen, cfg.d_model, cfg.padded_vocab,
                                         dtype)
     if cfg.family == "vlm":
         params["vision_proj"] = L.declare(gen, {
-            "w": ((cfg.d_vision, cfg.d_model), L.fan_in_std(cfg.d_vision)),
+            "w": ((cfg.d_vision, cfg.d_model), (None, "act_mlp"),
+                  L.fan_in_std(cfg.d_vision)),
         }, dtype)
     return params
 
@@ -128,7 +149,7 @@ def init_lm(cfg, gen: torch.Generator) -> Dict[str, Any]:
 # --------------------------------------------------------------------- #
 # full-sequence forward (prefill)
 # --------------------------------------------------------------------- #
-def _layer_fwd(lp, x, cfg, meta, compute_dtype):
+def _layer_fwd(lp, x, cfg, meta, compute_dtype, mesh=None):
     """One layer of the full sequence -> (x, its MoE aux, 0 elsewhere)."""
     fam = cfg.family
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -148,7 +169,7 @@ def _layer_fwd(lp, x, cfg, meta, compute_dtype):
         x = x + att
     h = L.rms_norm(x, lp["ln_mlp"]["w"], cfg.norm_eps)
     if fam == "moe":
-        y, aux = M.moe_block_dense(lp["moe"], h, cfg, compute_dtype)
+        y, aux = M.moe_block(lp["moe"], h, cfg, compute_dtype, mesh)
         return x + y, aux
     return x + L.swiglu(lp["mlp"], h, compute_dtype), aux
 
@@ -166,37 +187,67 @@ def _tensors(tree):
         yield tree
 
 
+def _residual(x, cfg, mesh):
+    seq_ax = "act_seq" if cfg.seq_shard_activations else None
+    return shard_activation(x, ("batch", seq_ax, "act_embed"), mesh)
+
+
+def _vision_prefix(params, patches, x, compute_dtype, mesh):
+    """``patches @ vision_proj`` before the text; on a mesh both are laid
+    out as the embedding's output (``vision_proj`` is ``act_mlp``)."""
+    patches = shard_activation(patches, ("batch", None, None), mesh)
+    w = params["vision_proj"]["w"].to(compute_dtype)
+    y = L.on_shards(lambda wl, pl, xl: torch.cat(
+        [pl.to(compute_dtype) @ wl, xl], dim=1), L.placements_of(x), w,
+        patches, x)
+    return y, patches.shape[1]
+
+
 def lm_forward(params, cfg, tokens: torch.Tensor,
-               patches: Optional[torch.Tensor] = None):
+               patches: Optional[torch.Tensor] = None, mesh=None):
     """tokens (b, s) int [, a vlm's patches (b, n_patches, d_vision)] ->
     (logits (b, n_prefix + s, padded_vocab) in ``cfg.dtype``, the summed
-    MoE aux (f32 0-d), n_prefix)."""
+    MoE aux (f32 0-d), n_prefix).  On a mesh the logits are a DTensor
+    sharded as ``("batch", None, "act_vocab")``."""
     _check_family(cfg)
     compute_dtype = L.dtype_of(cfg.dtype)
-    x = L.embed(params["embed"], tokens, compute_dtype)
+    x = L.embed(params["embed"], tokens, compute_dtype, mesh)
     n_prefix = 0
     if cfg.family == "vlm" and patches is not None:
-        vis = patches.to(compute_dtype) \
-            @ params["vision_proj"]["w"].to(compute_dtype)
-        x = torch.cat([vis, x], dim=1)
-        n_prefix = vis.shape[1]
+        x, n_prefix = _vision_prefix(params, patches, x, compute_dtype,
+                                     mesh)
+    x = shard_activation(x, ("batch", None, "act_embed"), mesh)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
         meta = _layer_meta_py(cfg, i)
         if cfg.remat and _takes_grad(lp, x):
             x, a = checkpoint(_layer_fwd, lp, x, cfg, meta, compute_dtype,
-                              use_reentrant=False)
+                              mesh, use_reentrant=False)
         else:
-            x, a = _layer_fwd(lp, x, cfg, meta, compute_dtype)
+            x, a = _layer_fwd(lp, x, cfg, meta, compute_dtype, mesh)
         aux = aux + a
+        x = _residual(x, cfg, mesh)
     x = L.rms_norm(x, params["ln_f"]["w"], cfg.norm_eps)
     return _head(params, cfg, x, compute_dtype), aux, n_prefix
 
 
 def _head(params, cfg, x, compute_dtype):
     if cfg.tie_embeddings:
-        return x @ params["embed"]["table"].to(compute_dtype).T
+        return L.head(params["embed"]["table"], x, compute_dtype, tied=True)
     return L.lm_head(params["head"], x, compute_dtype)
+
+
+def first_position(logits):
+    """``logits[:, 0]``: (b, 1, V) -> (b, V), a DTensor's on its local
+    shards."""
+    if not L.is_dtensor(logits):
+        return logits[:, 0]
+    from torch.distributed.tensor import Shard
+
+    out = [Shard(1) if isinstance(p, Shard) and p.dim == 2 else p
+           for p in logits.placements]
+    return L.lmap(lambda t: t[:, 0], out, (logits.placements,),
+                  logits.device_mesh)(logits)
 
 
 def lm_loss(params, cfg, batch):
@@ -235,15 +286,39 @@ def _ce(logits, labels, cfg):
 # --------------------------------------------------------------------- #
 # decode: per-layer loop with per-layer cache shapes
 # --------------------------------------------------------------------- #
-def init_decode_state(cfg, batch: int, kv_len: int,
-                      device) -> List[Dict[str, Any]]:
+KV_AXES = ("cache_batch", "kv_heads", "cache_seq", "head_dim")
+
+
+def decode_axes(cfg) -> List[Dict[str, Any]]:
+    """The logical axes of :func:`init_decode_state`'s caches."""
+    _check_family(cfg)
+    out = []
+    for _ in range(cfg.n_layers):
+        a: Dict[str, Any] = {}
+        if cfg.family in ATTN_FAMILIES:
+            a["k"] = a["v"] = KV_AXES
+        if cfg.family in SSM_FAMILIES:
+            a["ssm"] = S.SSM_CACHE_AXES
+        out.append(a)
+    return out
+
+
+def init_decode_state(cfg, batch: int, kv_len: int, device,
+                      mesh=None) -> List[Dict[str, Any]]:
     """Per-layer caches: attention families ``{"k", "v"}`` of (batch,
     hkv, S_i, dh) in ``cfg.dtype``, window layers with ``S_i =
     min(window, kv_len)``; ssm and hybrid ``{"ssm": {"state", "conv"}}``
-    (:func:`.ssm.init_ssm_cache`)."""
+    (:func:`.ssm.init_ssm_cache`).  On a mesh, DTensors laid out by
+    :func:`decode_axes`, each rank allocating its block."""
     _check_family(cfg)
     dtype = L.dtype_of(cfg.dtype)
     Hkv, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def zeros(shape, axes, dt=dtype):
+        if mesh is None:
+            return torch.zeros(shape, dtype=dt, device=device)
+        return mesh_zeros(shape, axes, mesh, dtype=dt, device=device)
+
     caches: List[Dict[str, Any]] = []
     for i in range(cfg.n_layers):
         c: Dict[str, Any] = {}
@@ -251,22 +326,30 @@ def init_decode_state(cfg, batch: int, kv_len: int,
             window = _layer_meta_py(cfg, i)["window"]
             S_i = kv_len if window is None else min(window, kv_len)
             shape = (batch, Hkv, S_i, Dh)
-            c["k"] = torch.zeros(shape, dtype=dtype, device=device)
-            c["v"] = torch.zeros(shape, dtype=dtype, device=device)
+            c["k"] = zeros(shape, KV_AXES)
+            c["v"] = zeros(shape, KV_AXES)
         if cfg.family in SSM_FAMILIES:
-            c["ssm"] = S.init_ssm_cache(cfg, batch, dtype, device)
+            c["ssm"] = S.init_ssm_cache(cfg, batch, dtype, device,
+                                        zeros=zeros)
         caches.append(c)
     return caches
 
 
 def lm_decode_step(params, cfg, caches, token: torch.Tensor, pos,
-                   active: Optional[torch.Tensor] = None):
+                   active: Optional[torch.Tensor] = None, mesh=None):
     """token: (b, 1) int; pos: scalar or (b,) int; active: optional (b,)
-    bool (continuous batching) -> (logits (b, vp), new caches)."""
+    bool (continuous batching) -> (logits (b, vp), new caches).  On a
+    mesh the logits are a DTensor sharded as ``("batch", "act_vocab")``
+    and the caches keep their placements."""
     _check_family(cfg)
     compute_dtype = L.dtype_of(cfg.dtype)
     fam = cfg.family
-    x = L.embed(params["embed"], token, compute_dtype)
+    x = L.embed(params["embed"], token, compute_dtype, mesh)
+    # weight-stationary decode: the activations carry the data shard of
+    # the embed dim, so each layer contracts against its local weight
+    # shard (partial sums reduced) instead of gathering the weights
+    act_ax = (None, None, "act_decode_embed")
+    x = shard_activation(x, act_ax, mesh)
     new_caches = []
     for i, lp in enumerate(params["layers"]):
         meta = _layer_meta_py(cfg, i)
@@ -275,7 +358,7 @@ def lm_decode_step(params, cfg, caches, token: torch.Tensor, pos,
             h = L.rms_norm(x, lp["ln_ssm"]["w"], cfg.norm_eps)
             y, c["ssm"] = S.mamba2_decode(lp["ssm"], h, c["ssm"], cfg,
                                           compute_dtype, active=active)
-            x = x + y
+            x = shard_activation(x + y, act_ax, mesh)
             new_caches.append(c)
             continue
         h = L.rms_norm(x, lp["ln_attn"]["w"], cfg.norm_eps)
@@ -296,10 +379,11 @@ def lm_decode_step(params, cfg, caches, token: torch.Tensor, pos,
             x = x + att
         h = L.rms_norm(x, lp["ln_mlp"]["w"], cfg.norm_eps)
         if fam == "moe":
-            x = x + M.moe_block_dense(lp["moe"], h, cfg, compute_dtype)[0]
+            x = x + M.moe_block(lp["moe"], h, cfg, compute_dtype, mesh)[0]
         else:
             x = x + L.swiglu(lp["mlp"], h, compute_dtype)
+        x = shard_activation(x, act_ax, mesh)
         new_caches.append(c)
     x = L.rms_norm(x, params["ln_f"]["w"], cfg.norm_eps)
-    logits = _head(params, cfg, x, compute_dtype)[:, 0]
+    logits = first_position(_head(params, cfg, x, compute_dtype))
     return logits, new_caches

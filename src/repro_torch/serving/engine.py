@@ -21,6 +21,16 @@ backend (``repro_torch.api.DEVICE_BACKENDS``, e.g. ``batched-device``,
 ``soa-device``, and ``sharded`` over one of them when
 ``cluster_shards > 1``) and ``None`` to a host backend, ``tiered``
 (``cluster_tier``) among them.
+
+``mesh=`` (a ``DeviceMesh``; the reference's ``mesh`` argument) serves a
+model placed on it (parameters from ``init(seed, mesh=mesh)`` or
+``models.registry.shard_params``): the caches are laid out by their
+logical axes and every decode step runs the models' mesh path.  Every
+rank runs this same host loop — scheduling, prefill of freed slots, the
+request clustering — on the same requests; the logits are gathered
+whole on every rank (``full_tensor()``), so every rank picks the same
+greedy tokens and keeps the same schedule.  Rank 0 returns and reports;
+the others run along.
 """
 
 from __future__ import annotations
@@ -61,9 +71,10 @@ class ServingEngine:
                  cluster_transport: str = "local",
                  cluster_replicas: int = 0,
                  cluster_tier: Optional[float] = None,
-                 obs: Obs = NULL_OBS):
+                 obs: Obs = NULL_OBS, mesh=None):
         self.model = model
         self.device = model.device
+        self.mesh = mesh
         # serving telemetry: per-op latency + scheduler state gauges.
         # Passing a live Obs also turns the clusterer's own obs knob on.
         self.obs = obs
@@ -75,7 +86,8 @@ class ServingEngine:
         self.B = batch
         self.kv_len = kv_len
         self.eos = eos_id
-        self.caches = model.decode_init(batch, kv_len)
+        self._on_mesh = {} if mesh is None else {"mesh": mesh}
+        self.caches = model.decode_init(batch, kv_len, **self._on_mesh)
         self.slots: List[Optional[Request]] = [None] * batch
         self.slot_pos = np.zeros(batch, dtype=np.int64)
         self.queue: List[Request] = []
@@ -117,7 +129,9 @@ class ServingEngine:
             logits, self.caches = self.model.decode_step(
                 self.params, self.caches, torch.from_numpy(tokens).to(dev),
                 torch.from_numpy(self.slot_pos.astype(np.int32)).to(dev),
-                torch.from_numpy(mask).to(dev))
+                torch.from_numpy(mask).to(dev), **self._on_mesh)
+            if self.mesh is not None:
+                logits = logits.full_tensor()
         return logits
 
     def submit(self, req: Request) -> None:

@@ -1,7 +1,9 @@
 """Training step: remat'd forward/backward, microbatch gradient
 accumulation, global-norm clipping, AdamW update.
 
-Mirror of ``repro.training.steps`` on one card, with no ``mesh``: one
+Mirror of ``repro.training.steps`` on one device; the reference's
+``mesh`` argument (a step sharded over a ``DeviceMesh``, as the models'
+prefill and decode already run) is the next slice's.  One
 ``loss.backward()`` per microbatch, the gradients summed in the
 parameters' dtype (float32, ``param_dtype``) over ``accum`` microbatches
 in order, as the reference's ``lax.scan`` sums them from zeros, then

@@ -189,6 +189,42 @@ def test_script_refuses_without_cuda(capsys):
     assert '"ok"' not in capsys.readouterr().out
 
 
+def test_kernel_device_ms_survives_a_profiler_that_traces_nothing(
+        monkeypatch, capsys):
+    """A profiler session may deliver no device activity; the kernel is
+    profiled again, and after ``PROFILE_TRIES`` empty sessions it is
+    timed with CUDA events, never returned as None."""
+    sessions = []
+
+    def events(fn):
+        fn()
+        sessions.append(1)
+        # the second session traces ``a`` only; ``b`` is never traced
+        return 0.0, ([("a_kernel", 4.0), ("a_kernel", 2.0)]
+                     if len(sessions) == 2 else [])
+
+    calls = {"a": 0, "b": 0}
+
+    def call(name):
+        def fn():
+            calls[name] += 1
+        return fn
+
+    monkeypatch.setattr(chip_smoke, "device_events", events)
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda fn, reps, warmup: (fn(), 0.25)[1])
+    out = chip_smoke.kernel_device_ms({"a": call("a"), "b": call("b")},
+                                      reps=2)
+    assert out == {"a": 3e-3, "b": 0.25}
+    assert len(sessions) == chip_smoke.PROFILE_TRIES
+    printed = capsys.readouterr().out
+    assert "traced no b launch" in printed
+    assert "traced no a launch" not in printed
+    # a: 2 calls in each of the 2 sessions until traced; b: 2 in each of
+    # the 3 sessions and 1 under CUDA events
+    assert calls == {"a": 4, "b": 7}
+
+
 _PTXAS = """\
 ptxas info    : Compiling entry function '_ZN56_GLOBAL__N__f19cc713_23_flash_\
 attention_sm90_cu_bed5ab3f27flash_attention_sm90_kernelILi128EEEv14CUtensor\
