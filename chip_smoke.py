@@ -295,6 +295,26 @@ Phases (1-3, 3b-3e, 4-11), each of which raises on failure (exit code
              unsharded engine's (at world > 1 both serve in f32).  Flash launches per rank equal the attention
              calls, all sm90; prefill and decode-step ms, peak GB per
              rank.  A failure in any rank fails the script.
+12. mesh train — the train step on a (1, 1) ``DeviceMesh`` of a world
+             of one (NCCL) against the unsharded step in the same run:
+             (a) granite-20b at published widths and TRAIN_LAYERS layers,
+             phase 8's batch, MESH_TRAIN_STEPS steps at accumulation
+             MESH_TRAIN_ACCUM, unsharded (kept on the host, freed), then
+             through ``build_cell(..., mesh)`` from the same draw: loss,
+             gradient norm and parameters within phase 8's bounds (equal
+             when the bodies keep the unsharded arithmetic), flash
+             launches 2 x layers x microbatches a step, all sm90, the
+             kernel against its plain version at the step's local shape;
+             (b) granite-moe at published widths, MESH_MOE_LAYERS layers,
+             f32 at capacity n_experts / top_k: the expert-parallel step
+             within MESH_MOE_F32_TOL of the dense dispatch's, drops
+             counted at its own capacity; (c) mamba2-780m x
+             MESH_RESTART_LAYERS: a save of parameters and AdamW state on
+             the mesh, restored onto it and unsharded, the next step from
+             each equal to the uninterrupted run's.  With n >= 2 cards
+             (a)'s mesh step in a world of min(4, n) on (2, 2) or (2, 1),
+             within MESH_TRAIN_BF16_RTOL of the world-1 step.  Step ms
+             (CUDA events), peak GB, the phase's seconds.
 
 The line before the last is one JSON object with a ``kernels`` list (all
 five kernels and the ``lsh_hash_resolve`` and fused
@@ -306,7 +326,9 @@ path, 3e (a), with their check at a shard's sub-batch, and on phase 8
 launches in 8 (c) and (d) and its check at the trainer's shape, and its
 launches per forward of each arch of phase 9 with its checks at phase
 9's shapes, its launches in each cell of phase 10 with its checks at
-32,768 rows, and its launches per rank in phase 11); the last line is
+32,768 rows, its launches per rank in phase 11, and its launches per
+rank in phase 12 with its check at the mesh step's local shape); the
+last line is
 ``{"ok": true, "device": {...}}``.
 ``--points`` cuts the main, dict and approx streams only (the cut is
 printed);
@@ -5414,6 +5436,511 @@ def print_mesh_phase(mesh: dict) -> None:
 
 
 # ---------------------------------------------------------------------- #
+# training on a (data, model) mesh (phase 12): the train step on a
+# DeviceMesh against the unsharded step in the same run
+# ---------------------------------------------------------------------- #
+MESH_TRAIN_STEPS, MESH_TRAIN_ACCUM = 2, 2
+# (b) the expert-parallel backward: granite-moe at its published widths,
+# depth cut, f32 compute, capacity n_experts / top_k, one step
+MESH_MOE_ARCH, MESH_MOE_LAYERS, MESH_MOE_SHAPE = \
+    "granite-moe-1b-a400m", 8, (4, 512)
+# its loss, gradient norm and m (the clipped gradient x 0.1, leaf by leaf
+# against the leaf's largest) against the dense dispatch's: the expert
+# mix sums the same products in another order, in f32 over 8 layers
+MESH_MOE_F32_TOL = 1e-4
+# (c) save on the mesh, restore onto it and unsharded: mamba2-780m (a
+# dense arch, so the unsharded step computes what the mesh step does)
+# at its published widths, depth cut to keep the state small on disk
+MESH_RESTART_ARCH, MESH_RESTART_LAYERS, MESH_RESTART_SHAPE = \
+    "mamba2-780m", 2, (8, 1024)
+# with >= 2 cards, granite-20b x 4 on (2, 2) (4 cards) or (2, 1) against
+# the world-1 mesh step: bf16 partial sums in another order, the bounds
+# of tests/test_torch_train.py's bf16 comparison (loss 1e-2 relative,
+# gradient 5e-2 of its leaf's largest, here of the norm)
+MESH_TRAIN_BF16_RTOL = (1e-2, 5e-2)
+
+
+def mesh_train_sizes(device: str) -> dict:
+    """Phase 12's configs and batches: on the card the published widths
+    with the depths above; on the CPU (tests) the smoke configs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    def cut(arch, layers):
+        cfg = get_config(arch)
+        if device == "cpu":
+            return dataclasses.replace(cfg.smoke(), n_layers=2)
+        return dataclasses.replace(cfg, n_layers=layers)
+
+    cpu = device == "cpu"
+    return {"dense": cut(TRAIN_ARCH, TRAIN_LAYERS),
+            "dense_batch": (4, 32) if cpu else (TRAIN_BATCH, TRAIN_SEQ),
+            "moe": cut(MESH_MOE_ARCH, MESH_MOE_LAYERS),
+            "moe_batch": (2, 16) if cpu else MESH_MOE_SHAPE,
+            "restart": cut(MESH_RESTART_ARCH, MESH_RESTART_LAYERS),
+            "restart_batch": (4, 32) if cpu else MESH_RESTART_SHAPE}
+
+
+def _peak_gb(device: str):
+    import torch
+
+    return None if device == "cpu" else \
+        torch.cuda.max_memory_allocated() / 1e9
+
+
+def _reset_peak(device: str) -> None:
+    import torch
+
+    if device != "cpu":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def train_cell_run(arch: str, cfg, batch_seq, where, steps: int,
+                   accum: int, capture=None):
+    """``steps`` steps of ``build_cell(arch, "train_4k", where)`` (a
+    device or a DeviceMesh) from ``inputs(SEED)``: -> (the cell, params,
+    optimizer state, the batch, per-step metrics with CUDA-event ms,
+    flash launches and those on the tensor cores).  ``capture``: a dict in which the
+    first attention call's inputs are kept."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cells import build_cell
+
+    b, s = batch_seq
+    cell = build_cell(arch, "train_4k", where, grad_accum=accum, cfg=cfg,
+                      shape=ShapeConfig("train_4k", s, b, "train"))
+    device = cell.device.type
+    params, state, batch = cell.inputs(SEED)
+    _sync(device)
+    ops.reset_launch_counts()
+    out = []
+    for i in range(steps):
+        ctx = capture_attention(capture) if capture is not None and i == 0 \
+            else contextlib.nullcontext()
+        with ctx:
+            if device == "cpu":
+                t0 = time.perf_counter()
+                params, state, m = cell.run(params, state, batch)
+                ms = (time.perf_counter() - t0) * 1e3
+            else:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                params, state, m = cell.run(params, state, batch)
+                end.record()
+                end.synchronize()
+                ms = start.elapsed_time(end)
+        out.append({"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]),
+                    "lr": float(m["lr"]), "ms": ms})
+    _sync(device)
+    launches = (ops.launch_counts()["flash_attention"],
+                ops.entry_launch_counts().get("flash_attention_sm90", 0))
+    return cell, params, state, batch, out, launches
+
+
+def _local_leaves(tree):
+    return [t.to_local() if hasattr(t, "to_local") else t
+            for t in _leaves(tree)]
+
+
+def _to_host(tree):
+    return [t.detach().to("cpu") for t in _local_leaves(tree)]
+
+
+def _max_diff(got, host) -> float:
+    """Max |a - b| over matching leaves, ``host`` moved leaf by leaf."""
+    return max(float((a.float() - b.to(a.device).float()).abs().max())
+               for a, b in zip(_local_leaves(got), host))
+
+
+def _held_steps(got, want, rtol) -> dict:
+    errs = {k: max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, want))
+            for k in ("loss", "grad_norm")}
+    if errs["loss"] > rtol[0] or errs["grad_norm"] > rtol[1]:
+        raise AssertionError(f"12: steps {got} vs {want}: {errs} > {rtol}")
+    return errs
+
+
+def mesh_train_dense(mesh, device: str, card: str) -> dict:
+    """12 (a): granite-20b at its published widths, TRAIN_LAYERS layers,
+    phase 8's batch, MESH_TRAIN_STEPS steps at accumulation
+    MESH_TRAIN_ACCUM unsharded (kept on the host, freed), then through
+    ``build_cell(..., mesh)`` from the same draw; the flash kernel on the
+    mesh step's inputs against its plain version."""
+    import torch
+
+    sz = mesh_train_sizes(device)
+    cfg, shape = sz["dense"], sz["dense_batch"]
+    on_card = device != "cpu"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _reset_peak(device)
+    _, p1, s1, _, one, _ = train_cell_run(TRAIN_ARCH, cfg, shape, device,
+                                          MESH_TRAIN_STEPS,
+                                          MESH_TRAIN_ACCUM)
+    peak_one = _peak_gb(device)
+    n_params = sum(t.numel() for t in _leaves(p1))
+    want = _to_host(p1)
+    del p1, s1
+    gc.collect()
+    _reset_peak(device)
+    captured: dict = {}
+    cell, pm, sm, _, got, (fl, fl90) = train_cell_run(
+        TRAIN_ARCH, cfg, shape, mesh, MESH_TRAIN_STEPS, MESH_TRAIN_ACCUM,
+        capture=captured)
+    peak = _peak_gb(device)
+    # the training forward's q / k / v, without their graph
+    captured = {sig: tuple(t.detach() for t in qkv[:3]) + qkv[3:]
+                for sig, qkv in captured.items()}
+    per_step = 2 * cfg.n_layers * cell.accum
+    if on_card and (fl != per_step * MESH_TRAIN_STEPS or fl90 != fl):
+        raise AssertionError(f"12 (a): flash launches {fl} ({fl90} sm90) "
+                             f"in {MESH_TRAIN_STEPS} steps, expected "
+                             f"{per_step} a step")
+    errs = _held_steps(got, one, (TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL))
+    pdiff = _max_diff(pm, want)
+    lrs = sum(m["lr"] for m in one)
+    if pdiff > 2 * lrs:
+        raise AssertionError(f"12 (a): parameters {pdiff} apart > "
+                             f"2 x sum(lr) {2 * lrs}")
+    flash = flash_at_cell(captured, card, device)
+    del pm, sm, want, captured
+    gc.collect()
+    _reset_peak(device)
+    return {"arch": TRAIN_ARCH, "layers": cfg.n_layers, "params": n_params,
+            "batch": list(shape), "steps": MESH_TRAIN_STEPS,
+            "accum": cell.accum, "mesh": list(mesh.shape),
+            "mesh_steps": got, "unsharded_steps": one,
+            "loss_rel_err": errs["loss"],
+            "grad_norm_rel_err": errs["grad_norm"],
+            "exact": errs["loss"] == 0 and errs["grad_norm"] == 0
+            and pdiff == 0, "params_max_abs_diff": pdiff,
+            "params_bound": 2 * lrs, "peak_gb": peak,
+            "peak_gb_unsharded": peak_one, "flash_launches": fl,
+            "flash_sm90_launches": fl90, "flash_launches_per_step": per_step,
+            "flash_check": flash, "card": card}
+
+
+def mesh_train_moe(mesh, device: str, card: str) -> dict:
+    """12 (b): granite-moe at its published widths, MESH_MOE_LAYERS
+    layers, f32, capacity n_experts / top_k: one step on the mesh
+    (expert parallel) against one unsharded (the dense dispatch); then
+    the drops of a forward at the config's own capacity."""
+    import dataclasses
+
+    from repro_torch.models import moe as M
+
+    sz = mesh_train_sizes(device)
+    base = dataclasses.replace(sz["moe"], dtype="float32")
+    cfg = dataclasses.replace(
+        base, capacity_factor=base.n_experts / base.top_k)
+    shape = sz["moe_batch"]
+    _reset_peak(device)
+    _, p1, s1, _, one, _ = train_cell_run(MESH_MOE_ARCH, cfg, shape,
+                                          device, 1, 1)
+    want = _to_host(s1["m"])
+    del p1, s1
+    gc.collect()
+    M.reset_ep_drops()
+    cell, pm, sm, _, got, _ = train_cell_run(MESH_MOE_ARCH, cfg, shape,
+                                             mesh, 1, 1)
+    no_drops = M.ep_drops()
+    errs = _held_steps(got, one, (MESH_MOE_F32_TOL, MESH_MOE_F32_TOL))
+    worst = 0.0
+    for a, b in zip(_local_leaves(sm["m"]), want):
+        b = b.to(a.device)
+        e = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        worst = max(worst, e)
+    if worst > MESH_MOE_F32_TOL:
+        raise AssertionError(f"12 (b): m {worst} of its leaf's largest > "
+                             f"{MESH_MOE_F32_TOL}")
+    del pm, sm, want
+    # the drops at the config's own capacity, a forward of the batch
+    own = build_cell_inputs_loss(MESH_MOE_ARCH, base, shape, mesh)
+    peak = _peak_gb(device)
+    gc.collect()
+    _reset_peak(device)
+    return {"arch": MESH_MOE_ARCH, "layers": cfg.n_layers,
+            "batch": list(shape), "dtype": "float32",
+            "capacity_factor": cfg.capacity_factor,
+            "mesh_step": got, "dense_step": one,
+            "loss_rel_err": errs["loss"],
+            "grad_norm_rel_err": errs["grad_norm"], "m_rel_err": worst,
+            "tol": MESH_MOE_F32_TOL, "drops_no_drops_capacity": no_drops,
+            "drops_own_capacity": own["drops"],
+            "own_capacity_factor": base.capacity_factor, "peak_gb": peak,
+            "card": card}
+
+
+def build_cell_inputs_loss(arch: str, cfg, batch_seq, mesh) -> dict:
+    """The expert-parallel drops of one forward of the train cell's loss
+    on ``mesh`` at ``cfg``'s capacity."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.models import moe as M
+
+    b, s = batch_seq
+    cell = build_cell(arch, "train_4k", mesh, cfg=cfg,
+                      shape=ShapeConfig("train_4k", s, b, "train"))
+    params, _, batch = cell.inputs(SEED)
+    M.reset_ep_drops()
+    with torch.no_grad():
+        loss, _ = cell.model.loss(params, {k: v.full_tensor() for k, v in
+                                           batch.items()}, mesh)
+    return {"loss": float(loss), "drops": M.ep_drops()}
+
+
+def mesh_train_restart(mesh, device: str, card: str) -> dict:
+    """12 (c): a step on the mesh, a save of the parameters and AdamW
+    state, the second step; then the save restored onto the mesh and
+    unsharded (``shardings=None``), and the second step from each: equal
+    to the uninterrupted run's."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.sharding.axes import sharding_tree
+    from repro_torch.training import make_train_step
+
+    sz = mesh_train_sizes(device)
+    cfg, shape = sz["restart"], sz["restart_batch"]
+    cell, params, state, batch, first, _ = train_cell_run(
+        MESH_RESTART_ARCH, cfg, shape, mesh, 1, 1)
+    model, opt = cell.model, cell.optimizer
+    tree = {"params": params, "opt": state}
+    with tempfile.TemporaryDirectory(dir=ROOT) as where:
+        mgr = CheckpointManager(where, async_write=False)
+        t0 = time.perf_counter()
+        mgr.save(1, tree)
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(where).rglob("*")
+                     if f.is_file())
+        _, _, m2 = cell.run(params, state, batch)
+        want = _to_host(params)
+        shardings = sharding_tree({"params": model.axes(),
+                                   "opt": opt.state_axes(model.axes())},
+                                  tree, mesh)
+        t0 = time.perf_counter()
+        back = mgr.restore(tree, step=1, shardings=shardings)
+        restore_s = time.perf_counter() - t0
+        # the template's leaves are DTensors: restored whole on their
+        # local device
+        whole = mgr.restore(tree, step=1)
+    del tree, params, state
+    gc.collect()
+    _, _, r2 = cell.run(back["params"], back["opt"], batch)
+    mesh_diff = _max_diff(back["params"], want)
+    del back
+    gc.collect()
+    plain = make_train_step(model, opt, grad_accum=cell.accum)
+    _, _, u2 = plain(whole["params"], whole["opt"],
+                     {k: v.full_tensor() for k, v in batch.items()})
+    whole_diff = _max_diff(whole["params"], want)
+    del whole
+    gc.collect()
+    _reset_peak(device)
+    losses = {"uninterrupted": float(m2["loss"]),
+              "restored_on_mesh": float(r2["loss"]),
+              "restored_unsharded": float(u2["loss"])}
+    if losses["restored_on_mesh"] != losses["uninterrupted"] or mesh_diff:
+        raise AssertionError(f"12 (c): the mesh restore's step differs: "
+                             f"{losses}, params {mesh_diff}")
+    # the unsharded step runs the mesh bodies' arithmetic off the mesh:
+    # exact if they keep it, else within phase 8's bounds
+    rel = abs(losses["restored_unsharded"] - losses["uninterrupted"]) / \
+        abs(losses["uninterrupted"])
+    lr = float(m2["lr"])
+    if rel > TRAIN_LOSS_RTOL or whole_diff > 2 * lr:
+        raise AssertionError(f"12 (c): the unsharded restore's step "
+                             f"differs: {losses}, params {whole_diff}")
+    return {"arch": MESH_RESTART_ARCH, "layers": cfg.n_layers,
+            "batch": list(shape), "step1": first,
+            "losses": losses, "unsharded_params_max_abs_diff": whole_diff,
+            "unsharded_exact": rel == 0 and whole_diff == 0,
+            "bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+            "card": card}
+
+
+def _mesh_train_rank(rank: int, world: int, port: int, where: str,
+                     shape) -> None:
+    """One rank of phase 12's world of min(4, n) cards: 12 (a)'s mesh
+    step on ``shape``."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, str(PKG.parent))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+
+    init_distributed("cuda", rank=rank, world_size=world,
+                     init_method=f"tcp://localhost:{port}")
+    ops.ensure_built()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(shape, ("data", "model"))
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    cell, _, _, _, got, (fl, fl90) = train_cell_run(
+        TRAIN_ARCH, cfg, (TRAIN_BATCH, TRAIN_SEQ), mesh, MESH_TRAIN_STEPS,
+        MESH_TRAIN_ACCUM)
+    Path(where, f"mesh_train_rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "steps": got, "accum": cell.accum,
+        "flash_launches": fl, "flash_sm90_launches": fl90,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_train_multi(world1: dict) -> dict:
+    """With n >= 2 cards: 12 (a)'s mesh step in a world of min(4, n)
+    processes on (2, 2) (4 cards) or (2, 1), against the world-1 mesh
+    step within MESH_TRAIN_BF16_RTOL."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    world = min(4, torch.cuda.device_count())
+    shape = (2, 2) if world == 4 else (2, 1)
+    world = shape[0] * shape[1]
+    t0 = time.perf_counter()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    with tempfile.TemporaryDirectory(dir=ROOT) as where:
+        mp.start_processes(_mesh_train_rank,
+                           args=(world, port, where, shape), nprocs=world,
+                           join=True, start_method="spawn")
+        ranks = [json.loads(Path(where, f"mesh_train_rank{r}.json")
+                            .read_text()) for r in range(world)]
+    errs = _held_steps(ranks[0]["steps"], world1["mesh_steps"],
+                       MESH_TRAIN_BF16_RTOL)
+    per_step = 2 * TRAIN_LAYERS * ranks[0]["accum"]
+    for r in ranks:
+        if r["flash_launches"] != per_step * MESH_TRAIN_STEPS or \
+                r["flash_sm90_launches"] != r["flash_launches"]:
+            raise AssertionError(f"12 multi: rank {r['rank']} flash "
+                                 f"launches {r['flash_launches']}")
+    return {"world": world, "mesh": list(shape), "ranks": ranks,
+            "loss_rel_err": errs["loss"],
+            "grad_norm_rel_err": errs["grad_norm"],
+            "rtol": list(MESH_TRAIN_BF16_RTOL),
+            "wall_s": time.perf_counter() - t0}
+
+
+def run_mesh_train_phase(card: str, device: str = "cuda") -> dict:
+    """Phase 12: (a), (b) and (c) on a (1, 1) DeviceMesh in this process
+    (a world of one: NCCL on the card, gloo on the CPU, where the tests
+    rehearse it at the smoke configs), then with n >= 2 cards a world of
+    min(4, n)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+
+    t0 = time.perf_counter()
+    started = not dist.is_initialized()
+    init_distributed(device)
+    if device != "cpu":
+        device = f"cuda:{torch.cuda.current_device()}"
+    mesh = make_mesh((1, 1), ("data", "model"))
+    out = {"card": card, "cards": torch.cuda.device_count()
+           if device != "cpu" else 0}
+    try:
+        for part, fn in (("a", mesh_train_dense), ("b", mesh_train_moe),
+                         ("c", mesh_train_restart)):
+            t1 = time.perf_counter()
+            out[part] = fn(mesh, device, card)
+            out[part]["wall_s"] = time.perf_counter() - t1
+    finally:
+        if started:
+            dist.destroy_process_group()
+    if out["cards"] >= 2:
+        out["multi"] = mesh_train_multi(out["a"])
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_mesh_train_phase(mt: dict) -> None:
+    from repro_torch.configs import get_config
+
+    card = mt["card"]
+    a, b, c = mt["a"], mt["b"], mt["c"]
+    ms = [m["ms"] for m in a["mesh_steps"]]
+    ms1 = [m["ms"] for m in a["unsharded_steps"]]
+    full = {n: get_config(n).n_layers for n in (a["arch"], b["arch"],
+                                                 c["arch"])}
+
+    def cut(r):
+        return f"{r['layers']}L (CUT from {full[r['arch']]})"
+
+    print(f"mesh train (a): {a['arch']} x {cut(a)} at published "
+          f"widths, {a['params']} parameters, batch {a['batch'][0]} x "
+          f"{a['batch'][1]}, accumulation {a['accum']}, on "
+          f"{tuple(a['mesh'])}: step ms {[round(v, 2) for v in ms]} "
+          f"(unsharded {[round(v, 2) for v in ms1]}); loss rel err "
+          f"{a['loss_rel_err']:.3e}, grad norm rel err "
+          f"{a['grad_norm_rel_err']:.3e}, params max |diff| "
+          f"{a['params_max_abs_diff']:.3e} (bound {a['params_bound']:.3e})"
+          f", exact {a['exact']}; flash launches {a['flash_launches']} in "
+          f"{a['steps']} steps ({a['flash_launches_per_step']} a step, "
+          f"{a['flash_sm90_launches']} sm90); peak {a['peak_gb']:.2f} GB "
+          f"(unsharded {a['peak_gb_unsharded']:.2f}); part "
+          f"{a['wall_s']:.1f} s  [{card}]", flush=True)
+    for r in a["flash_check"]:
+        print(f"mesh train (a): flash_attention at the mesh step's local "
+              f"{r['shape']} kv heads {r['kv_heads']}: err "
+              f"{r['max_abs_err']:.3e} bf16 (tol {r['tol']:.3e}) / "
+              f"{r['max_abs_err_f32']:.3e} f32; {r['ms']:.4f} ms, SDPA "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ms  "
+              f"[{card}]", flush=True)
+    print(f"mesh train (b): {b['arch']} x {cut(b)}, f32, batch "
+          f"{b['batch'][0]} x {b['batch'][1]}, capacity "
+          f"{b['capacity_factor']}: expert-parallel step "
+          f"{b['mesh_step'][0]['ms']:.2f} ms vs dense dispatch "
+          f"{b['dense_step'][0]['ms']:.2f} ms; loss rel err "
+          f"{b['loss_rel_err']:.3e}, grad norm {b['grad_norm_rel_err']:.3e}"
+          f", m {b['m_rel_err']:.3e} of its leaf's largest (tol "
+          f"{b['tol']:.0e}); drops {b['drops_no_drops_capacity']} (at "
+          f"{b['own_capacity_factor']}: {b['drops_own_capacity']}); peak "
+          f"{b['peak_gb']:.2f} GB; part {b['wall_s']:.1f} s  [{card}]",
+          flush=True)
+    print(f"mesh train (c): {c['arch']} x {cut(c)}, batch "
+          f"{c['batch'][0]} x {c['batch'][1]}: saved {c['bytes']} bytes in "
+          f"{c['save_s']:.2f} s, restored in {c['restore_s']:.2f} s; step 2"
+          f" loss {json.dumps(c['losses'])}; unsharded restore exact "
+          f"{c['unsharded_exact']}; part {c['wall_s']:.1f} s  [{card}]",
+          flush=True)
+    if "multi" in mt:
+        m = mt["multi"]
+        print(f"mesh train: world {m['world']} on {tuple(m['mesh'])}: "
+              f"steps {[[round(s['loss'], 5), round(s['ms'], 1)] for s in m['ranks'][0]['steps']]} "
+              f"(loss, ms); loss rel err {m['loss_rel_err']:.3e}, grad norm"
+              f" {m['grad_norm_rel_err']:.3e} vs world 1 (bounds "
+              f"{m['rtol']}); flash launches per rank "
+              f"{[r['flash_launches'] for r in m['ranks']]}; peak "
+              f"{[round(r['peak_gb'], 2) for r in m['ranks']]} GB; part "
+              f"{m['wall_s']:.1f} s  [{card}]", flush=True)
+    else:
+        print(f"mesh train: the multi-card part (granite-20b x "
+              f"{TRAIN_LAYERS} on (2, 2) or (2, 1)) skipped: one card — "
+              f"tests/test_torch_mesh_train.py carries its semantics on "
+              f"gloo worlds of 2 and 4  [{card}]", flush=True)
+    print(f"mesh train: phase {mt['wall_s']:.1f} s  [{card}]", flush=True)
+    print("mesh_train_path " + json.dumps(mt), flush=True)
+
+
+# ---------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--points", type=int, default=STREAM_POINTS,
@@ -5752,6 +6279,15 @@ def main(argv=None) -> int:
     # 11. mesh: the models' mesh path in a world of one process per card
     mesh = run_mesh_phase(card)
     print_mesh_phase(mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mark("phase 12 (mesh train)")
+    # 12. training on the mesh: the train step on a (1, 1) DeviceMesh
+    #     against the unsharded step, the expert-parallel backward, a
+    #     checkpoint restart; with n >= 2 cards a world of min(4, n)
+    mt = run_mesh_train_phase(card)
+    print_mesh_train_phase(mt)
     for k in kernels:
         if k["name"] == "flash_attention":
             k["families_launches"] = {
@@ -5783,6 +6319,16 @@ def main(argv=None) -> int:
             k["train_steps"] = tc["steps"]
             k["train_protocol_launches"] = td["flash_launches"]
             k["train_shape"] = ts
+            k["mesh_train_launches_per_rank"] = {
+                f"{mt['a']['arch']} x {mt['a']['layers']}L on "
+                f"{mt['a']['mesh']}, rank 0": mt["a"]["flash_launches"]}
+            if "multi" in mt:
+                k["mesh_train_launches_per_rank"].update({
+                    f"{mt['a']['arch']} x {mt['a']['layers']}L on "
+                    f"{mt['multi']['mesh']}, rank {r['rank']}":
+                    r["flash_launches"] for r in mt["multi"]["ranks"]})
+            k["mesh_train_steps"] = mt["a"]["steps"]
+            k["mesh_train_checks"] = mt["a"]["flash_check"]
     mark("the end")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,9 +19,22 @@ directory the reference wrote loads here under a template of the same
 nesting (numpy leaves give numpy arrays), and index directories
 interchange both ways.
 
-  * one card holds every array whole: each manifest ``"spec"`` is
-    ``null``, and :meth:`restore` puts each array on its template leaf's
-    device (the counterpart of the reference's ``jax.device_put``);
+  * a tree of DTensors (parameters and optimizer state on a
+    ``DeviceMesh``) is saved with each leaf's spec in the manifest, in
+    the reference's JSON form (``_spec_to_json``: per dimension null, an
+    axis name or a list of names), rebuilt from the placements and the
+    mesh's axis names; a plain tensor's spec is ``null``.  Every rank
+    takes part in the gather of each leaf, and only ``host_id`` 0
+    writes: one ``shard_00000.npz`` of whole arrays, as the reference's
+    single-process save writes it, so directories interchange both ways
+    (a deliberate departure from the reference's fleet design, where
+    every host writes its own shards);
+  * :meth:`restore` reshards on load: given ``shardings``, a tree of
+    :class:`repro_torch.sharding.axes.NamedSharding` (a mesh and a
+    placement list, the counterpart of the reference's
+    ``jax.device_put(arr, NamedSharding)``), each array is placed on the
+    new mesh whatever mesh saved it; without, on its template leaf's
+    (local) device, whole;
   * writes go to a temp dir + atomic rename; LATEST updates last, so a
     crash mid-write never corrupts the restore point;
   * an async writer thread moves serialisation off the training loop.
@@ -71,6 +84,21 @@ def _unflatten(template, values: Dict[str, Any], prefix: str = ""):
     return values[prefix[:-1]]
 
 
+def _spec_to_json(spec):
+    """The reference's JSON form of a spec: per dimension None, an axis
+    name, or a list of names."""
+    if spec is None:
+        return None
+    return [None if e is None else list(e) if isinstance(e, (tuple, list))
+            else str(e) for e in spec]
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
 def _to_host(leaf) -> np.ndarray:
     """A host copy of ``leaf`` that later in-place updates cannot reach."""
     if isinstance(leaf, torch.Tensor):
@@ -92,16 +120,29 @@ class CheckpointManager:
         self._async = async_write
         self._worker: Optional[threading.Thread] = None
         self._errors: list = []
+        self._on_mesh = False
         if async_write:
             self._worker = threading.Thread(target=self._drain, daemon=True)
             self._worker.start()
 
     # ------------------------------------------------------------------ #
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None):
-        """Snapshot to host memory now; write asynchronously."""
-        arrays = {key: _to_host(leaf)
-                  for key, leaf in _flatten_with_paths(tree).items()}
-        specs = {key: None for key in arrays}
+        """Snapshot to host memory now; write asynchronously.  A DTensor
+        leaf is gathered whole on every rank (each rank of its mesh must
+        call ``save``), and only ``host_id`` 0 writes."""
+        from ..sharding.axes import spec_of
+
+        arrays, specs = {}, {}
+        for key, leaf in _flatten_with_paths(tree).items():
+            specs[key] = None
+            if _is_dtensor(leaf):
+                self._on_mesh = True
+                specs[key] = _spec_to_json(spec_of(
+                    leaf.placements, leaf.device_mesh, leaf.ndim))
+                leaf = leaf.full_tensor()
+            arrays[key] = _to_host(leaf)
+        if self.host_id != 0:
+            return
         payload = (step, arrays, specs, extra or {})
         if self._async:
             self._q.put(payload)
@@ -109,8 +150,14 @@ class CheckpointManager:
             self._write(payload)
 
     def wait(self):
+        """Until the saves are on disk; after a save of DTensors, on
+        every rank of the world (a barrier after host 0's writes)."""
+        import torch.distributed as dist
+
         if self._async:
             self._q.join()
+        if self._on_mesh and dist.is_initialized():
+            dist.barrier()
         if self._errors:
             raise self._errors[0]
 
@@ -158,10 +205,18 @@ class CheckpointManager:
             return None
         return int(f.read_text().split("_")[1])
 
-    def restore(self, template: Any, step: Optional[int] = None) -> Any:
+    def restore(self, template: Any, step: Optional[int] = None,
+                shardings: Any = None) -> Any:
         """Restore into ``template``'s tree structure: a tensor leaf gives
-        a tensor on that leaf's device, in the saved dtype; any other leaf
-        a numpy array."""
+        a tensor on that leaf's device (a DTensor's local device), whole,
+        in the saved dtype; any other leaf a numpy array.
+
+        ``shardings``: optional matching tree whose leaves are
+        :class:`repro_torch.sharding.axes.NamedSharding` (a ``DeviceMesh``
+        and a placement list) or None: a leaf with one is placed on its
+        mesh as a DTensor, each rank keeping its block — the reference's
+        ``jax.device_put(arr, NamedSharding)``, which reshards when the
+        mesh changed since the save (elastic restart)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -172,11 +227,16 @@ class CheckpointManager:
             with np.load(f) as z:
                 for k in z.files:
                     data[k] = z[k]
+        placed = {} if shardings is None else _flatten_with_paths(shardings)
         out = {}
         for key, leaf in _flatten_with_paths(template).items():
             arr = data[key]
-            if isinstance(leaf, torch.Tensor):
-                out[key] = torch.from_numpy(arr).to(leaf.device)
+            if placed.get(key) is not None:
+                out[key] = placed[key].place(torch.from_numpy(arr))
+            elif isinstance(leaf, torch.Tensor):
+                dev = leaf.to_local().device if _is_dtensor(leaf) \
+                    else leaf.device
+                out[key] = torch.from_numpy(arr).to(dev)
             else:
                 out[key] = arr
         return _unflatten(template, out)

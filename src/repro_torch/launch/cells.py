@@ -8,13 +8,15 @@ device (one card: today's cells) or a ``torch.distributed``
 
 * On a device, every logical axis is replicated: a :class:`Cell` holds
   ``device`` and no shardings.
-* On a mesh, the prefill and decode cells place their inputs as the
-  reference's ``_tree_shardings`` and ``logical_to_spec`` do:
-  parameters and caches by their logical axes (DTensors, each rank
-  holding its block), tokens / patches / frames by ``batch``, and the
-  step returns logits placed as ``("batch", None, "act_vocab")`` (decode
-  ``("batch", "act_vocab")``).  The train cell on a mesh is not built
-  yet (``NotImplementedError``).
+* On a mesh, the cells place their inputs as the reference's
+  ``_tree_shardings`` and ``logical_to_spec`` do: parameters, the AdamW
+  state (``AdamW.state_axes``) and caches by their logical axes
+  (DTensors, each rank holding its block), tokens / labels / patches /
+  frames by ``batch``.  The prefill step returns logits placed as
+  ``("batch", None, "act_vocab")`` (decode ``("batch", "act_vocab")``);
+  the train step is ``make_train_step(mesh=)``, its accumulation clamped
+  to the batch over the mesh's data-parallel extent (pod x data), and
+  returns the updated parameters and state in their placements.
 * There is no ``lower``: a PyTorch step is not traced or compiled, so
   there is nothing to lower.  A cell is run (:meth:`Cell.run`), or
   analysed operation by operation on ``meta`` tensors
@@ -35,7 +37,8 @@ device (one card: today's cells) or a ``torch.distributed``
   old ones.
 
 ``python -m repro_torch.launch.cells --arch A --shape S --mesh DxM``
-runs one prefill or decode cell on a mesh, one process per card:
+runs one cell on a mesh, one process per card (a train shape prints the
+step's loss):
 ``torchrun --nproc-per-node 4 -m repro_torch.launch.cells --arch
 qwen1.5-110b --shape prefill_32k --mesh 1x4 --layers 4 --seq 4096
 --batch 1`` (``--device cpu`` for a gloo world here).
@@ -61,7 +64,8 @@ from ..configs import ArchConfig, ShapeConfig, get_config, get_shape
 from ..models.registry import ModelAPI, build_model
 from ..optim import AdamW, warmup_cosine
 from ..optim.adamw import tree_map
-from ..sharding.axes import distribute, local_block
+from ..sharding.axes import distribute, local_block, mesh_device
+from ..sharding.collectives import Local
 from ..training import make_train_step
 
 #: the logical axes of each batch key (the reference's ``batch_specs``)
@@ -176,16 +180,15 @@ class Cell:
         mesh = self.mesh
         if params is None:
             params = self.model.init(seed, mesh=mesh)
-        if self.kind == "train":
-            batch = make_batch(batch_specs(self.cfg, self.shape_cfg, True),
-                               self.cfg, seed, self.device)
-            return params, self.optimizer.init(params), batch
-        if self.kind == "prefill":
-            batch = make_batch(batch_specs(self.cfg, self.shape_cfg, False),
+        if self.kind in ("train", "prefill"):
+            train = self.kind == "train"
+            batch = make_batch(batch_specs(self.cfg, self.shape_cfg, train),
                                self.cfg, seed, self.device)
             if mesh is not None:
                 batch = {k: distribute(v, BATCH_AXES[k], mesh)
                          for k, v in batch.items()}
+            if train:
+                return params, self.optimizer.init(params), batch
             return params, batch
         B, S = self.shape_cfg.global_batch, self.shape_cfg.seq_len
         caches = self.model.decode_init(B, S, mesh=mesh)
@@ -223,13 +226,6 @@ def _decode_fn(model: ModelAPI, mesh=None) -> Callable:
     return decode
 
 
-def _mesh_device(mesh) -> torch.device:
-    """This rank's device of ``mesh``."""
-    if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(mesh.device_type)
-
-
 def build_cell(arch_id: str, shape_id: str, device="cuda",
                grad_accum: Optional[int] = None,
                cfg: Optional[ArchConfig] = None,
@@ -242,7 +238,7 @@ def build_cell(arch_id: str, shape_id: str, device="cuda",
     shape = shape if shape is not None else get_shape(shape_id)
     mesh = None
     if not isinstance(device, (str, torch.device)):
-        mesh, dev = device, _mesh_device(device)
+        mesh, dev = device, mesh_device(device)
     else:
         dev = torch.device(device)
     model = build_model(cfg, device=dev)
@@ -251,19 +247,16 @@ def build_cell(arch_id: str, shape_id: str, device="cuda",
                   device=dev, model=model, shape_cfg=shape, mesh=mesh)
 
     if shape.kind == "train":
-        if mesh is not None:
-            raise NotImplementedError("the train cell on a mesh is not "
-                                      "built yet (ROADMAP.md Queue 1)")
         accum = grad_accum or ACCUM_OVERRIDES.get((arch_id, shape_id),
                                                   cfg.grad_accum)
-        # microbatches must stay whole over the data-parallel extent,
-        # which is 1 on one card
-        dp_total = 1
+        # microbatches must stay shardable over the data-parallel
+        # extent (pod x data), 1 on one card
+        dp_total = Local(mesh).size(("pod", "data"))
         accum = max(1, min(accum, shape.global_batch // dp_total))
         opt = AdamW(lr=warmup_cosine(3e-4, 100, 10_000))
         batch = {k: s.meta() for k, s in
                  batch_specs(cfg, shape, with_labels=True).items()}
-        step = make_train_step(model, opt, grad_accum=accum)
+        step = make_train_step(model, opt, mesh=mesh, grad_accum=accum)
         return Cell(step_fn=step, args=(params, opt.init(params), batch),
                     accum=accum, optimizer=opt, **common)
 
@@ -282,11 +275,13 @@ def build_cell(arch_id: str, shape_id: str, device="cuda",
 
 
 def main(argv=None) -> int:
-    """Run one prefill or decode cell on a (data, model) mesh of this
-    ``torchrun`` world (by default :func:`.mesh.make_production_mesh`);
-    rank 0 prints the logits' shape and placements, whether they are
-    finite, and the step's milliseconds (the host clock, after a
-    warm-up).  A world this call started is closed at the end."""
+    """Run one cell on a (data, model) mesh of this ``torchrun`` world
+    (by default :func:`.mesh.make_production_mesh`); rank 0 prints, for
+    prefill or decode, the logits' shape and placements, whether they
+    are finite, and the step's milliseconds (the host clock, after a
+    warm-up); for train, the two steps' losses, whether they are
+    finite, and the second step's milliseconds.  A world this call
+    started is closed at the end."""
     import argparse
     import time
 
@@ -297,8 +292,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=list(ARCH_IDS))
-    ap.add_argument("--shape", required=True, choices=[
-        s for s in SHAPES if get_shape(s).kind != "train"])
+    ap.add_argument("--shape", required=True, choices=list(SHAPES))
     ap.add_argument("--mesh", default="",
                     help="data x model (default 1 x the world)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -323,6 +317,8 @@ def main(argv=None) -> int:
                                 or shape.global_batch)
     cell = build_cell(args.arch, args.shape, mesh, cfg=cfg, shape=shape)
     inputs = cell.inputs(0)
+    if cell.kind == "train":
+        return _train_main(cell, inputs, mesh, rank, args.device, started)
     out = cell.run(*inputs)
     logits = out[0] if cell.kind == "decode" else out
     finite = bool(torch.isfinite(logits.to_local()).all())
@@ -337,6 +333,29 @@ def main(argv=None) -> int:
         print(f"{args.arch} x {args.shape} on {tuple(mesh.shape)}: logits "
               f"{tuple(logits.shape)} {list(logits.placements)}, finite "
               f"{finite}, {ms:.2f} ms", flush=True)
+    if started:
+        dist.destroy_process_group()
+    return 0
+
+
+def _train_main(cell, inputs, mesh, rank, device, started) -> int:
+    import time
+
+    import torch.distributed as dist
+
+    params, opt_state, batch = inputs
+    params, opt_state, m1 = cell.run(params, opt_state, batch)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt_state, m2 = cell.run(params, opt_state, batch)
+    losses = [float(m1["loss"]), float(m2["loss"])]
+    ms = (time.perf_counter() - t0) * 1e3
+    finite = all(np.isfinite(v) for v in losses)
+    if rank == 0:
+        print(f"{cell.arch} x {cell.shape} on {tuple(mesh.shape)}: train "
+              f"accum {cell.accum}, loss {losses[0]:.6f} -> "
+              f"{losses[1]:.6f}, finite {finite}, {ms:.2f} ms", flush=True)
     if started:
         dist.destroy_process_group()
     return 0

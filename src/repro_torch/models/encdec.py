@@ -257,7 +257,8 @@ def decode_train(params, cfg, tokens: torch.Tensor,
 
 def encdec_loss(params, cfg, batch, mesh=None):
     """Mean next-token CE of the decoder over valid (label >= 0)
-    positions -> (loss, {"ce", "tokens"})."""
+    positions -> (loss, {"ce", "tokens"}); on a mesh over the global
+    batch, the same on every rank (:func:`.transformer._ce`)."""
     enc_out = encode(params, cfg, batch["frames"], mesh)
     logits = decode_train(params, cfg, batch["tokens"], enc_out, mesh)
     ce, denom = T._ce(logits, batch["labels"], cfg)

@@ -22,7 +22,11 @@ Mamba-2 mixer and the MLPs (:func:`whole_seq`); an MLP's weights are
 gathered over
 ``data`` (ZeRO-3) for a full-sequence input, and consumed shard-local
 against an embed-sharded decode input (``act_decode_embed``), whose
-partial sums are reduced once per product.
+partial sums are reduced once per product.  For a gradient,
+:func:`on_shards` gives each body input that is whole over an axis the
+body's work is split over a partial-sum gradient there
+(:func:`grad_placements`), and each collective its backward
+(:mod:`repro_torch.sharding.collectives`).
 """
 
 from __future__ import annotations
@@ -112,9 +116,11 @@ def local_device(t) -> torch.device:
     return t.to_local().device if is_dtensor(t) else t.device
 
 
-def lmap(body, out_placements, in_placements, mesh):
+def lmap(body, out_placements, in_placements, mesh, in_grad=None):
     """``local_map`` with explicit placements in and out (the
-    reference's ``shard_map`` in_specs / out_specs)."""
+    reference's ``shard_map`` in_specs / out_specs) and, for a gradient,
+    the placements of each input's gradient (``in_grad``; default its
+    own)."""
     from torch.distributed.tensor import Placement
     from torch.distributed.tensor.experimental import local_map
 
@@ -127,19 +133,49 @@ def lmap(body, out_placements, in_placements, mesh):
         tuple(one(p) for p in out_placements)
     return local_map(body, out_placements=out,
                      in_placements=tuple(one(p) for p in in_placements),
+                     in_grad_placements=None if in_grad is None else
+                     tuple(one(p) for p in in_grad),
                      device_mesh=mesh)
 
 
-def on_shards(body, out_placements, *args):
+def grad_placements(args, whole=None):
+    """The placements of the gradients of a body's inputs ``args``: an
+    input whole (``Replicate``) over a mesh axis that some input is
+    split over (an axis of extent > 1 the body's work is divided by)
+    takes its gradient as a partial sum there (``Partial``), except on
+    the axes ``whole[i]`` names for input ``i`` (read only after the
+    body's reduction over them, so every rank holds the whole
+    gradient).  None for a plain tensor."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    dts = [a for a in args if is_dtensor(a)]
+    if not dts:
+        return None
+    mesh = dts[0].device_mesh
+    names = mesh_axis_names(mesh)
+    split = {d for a in dts for d, p in enumerate(a.placements)
+             if isinstance(p, Shard) and mesh.size(d) > 1}
+    whole = whole or {}
+    return tuple(
+        None if not is_dtensor(a) else
+        tuple(Partial() if isinstance(p, Replicate) and d in split
+              and names[d] not in whole.get(i, ()) else p
+              for d, p in enumerate(a.placements))
+        for i, a in enumerate(args))
+
+
+def on_shards(body, out_placements, *args, whole=None):
     """``body(*args)`` on local shards: under :func:`lmap` with the
-    arguments' placements in and ``out_placements`` out when ``args[0]``
-    is a DTensor; directly on plain tensors, where the body's
-    :class:`Local` collectives are the identity."""
+    arguments' placements in, ``out_placements`` out and the gradients'
+    placements of :func:`grad_placements` when ``args[0]`` is a DTensor;
+    directly on plain tensors, where the body's :class:`Local`
+    collectives are the identity."""
     if not is_dtensor(args[0]):
         return body(*args)
     return lmap(body, out_placements,
                 tuple(placements_of(a) for a in args),
-                args[0].device_mesh)(*args)
+                args[0].device_mesh,
+                in_grad=grad_placements(args, whole))(*args)
 
 
 def sharded_axes(t, dim: int) -> Tuple[str, ...]:
@@ -225,8 +261,10 @@ def rms_local(x, scale, eps: float, loc: Local, axes) -> torch.Tensor:
     shard's slice."""
     xf = x.to(torch.float32)
     if axes:
-        var = loc.all_reduce((xf * xf).sum(-1, keepdim=True), axes) \
-            / (x.shape[-1] * loc.size(axes))
+        # every rank normalises its slice by the shared variance: the
+        # backward sums the slices' shares of its cotangent
+        var = loc.all_reduce((xf * xf).sum(-1, keepdim=True), axes,
+                             grad="sum") / (x.shape[-1] * loc.size(axes))
     else:
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
@@ -337,7 +375,10 @@ def gelu_mlp(p, x: torch.Tensor, compute_dtype) -> torch.Tensor:
         r = loc.rank(e_axes)
         return out + bl_out[r * n:(r + 1) * n]
 
-    return on_shards(body, placements_of(x), x, w_in, w_out, b_in, b_out)
+    # b_out is added after the reduction over f_axes: its gradient is
+    # whole there
+    return on_shards(body, placements_of(x), x, w_in, w_out, b_in, b_out,
+                     whole={4: f_axes})
 
 
 # --------------------------------------------------------------------- #

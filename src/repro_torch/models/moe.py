@@ -157,14 +157,18 @@ def _local_dispatch_combine(x, router, w_gate, w_up, w_down, *, cfg,
     xf = x.reshape(T, E)
     if ws_axes:
         r = loc.rank(ws_axes)
+        # the whole logits route this rank's embed slice: the backward
+        # sums the slices' shares
         logits = loc.all_reduce(xf.to(f32) @ router[r * E:(r + 1) * E]
-                                .to(f32), ws_axes)
+                                .to(f32), ws_axes, grad="sum")
     else:
         logits = xf.to(f32) @ router.to(f32)
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.topk(probs, k, dim=-1)
     vals = vals / (vals.sum(-1, keepdim=True) + 1e-9)
     every = tuple(dp_axes) + ("model",)
+    # the mean of the shards' aux, the same on every rank (the loss's
+    # term): each rank's cotangent is the whole one
     aux = loc.all_reduce(_aux_loss(probs, idx, X), every) / loc.size(every)
 
     e_flat = idx.reshape(-1)
@@ -233,9 +237,10 @@ def moe_block(p, x, cfg, compute_dtype, mesh=None
         ep=ep, loc=loc, dp_axes=dp_axes, ws_axes=("data",) if ws else ())
     from torch.distributed.tensor import Replicate
 
+    args = (xin, router, *w)
     y, aux = L.lmap(body, (x_pl, [Replicate()] * mesh.ndim),
-                    (x_pl, router.placements)
-                    + tuple(t.placements for t in w), mesh)(xin, router, *w)
+                    tuple(t.placements for t in args), mesh,
+                    L.grad_placements(args))(*args)
     return L.with_placements(y, x.placements), aux.to_local()
 
 
@@ -248,10 +253,11 @@ def _dense_on_mesh(p, x, cfg, compute_dtype, mesh):
             for p_ in x.placements]
     xin = L.with_placements(x, x_pl)
     w = {n: L.gather_all(p[n]) for n in ("router",) + _W}
+    args = (xin, *w.values())
     y, aux = L.lmap(
         lambda xl, *wl: moe_block_dense(dict(zip(w, wl)), xl, cfg,
                                         compute_dtype),
         (x_pl, [Replicate()] * mesh.ndim),
-        (x_pl,) + tuple(t.placements for t in w.values()), mesh)(
-            xin, *w.values())
+        tuple(t.placements for t in args), mesh,
+        L.grad_placements(args))(*args)
     return L.with_placements(y, x.placements), aux.to_local()

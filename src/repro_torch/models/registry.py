@@ -7,7 +7,7 @@ unless the caller asks for the CPU — and its ``init`` and
 ``decode_init`` allocate there.  ``forward`` reads ``batch["tokens"]``,
 a vlm's ``batch["patches"]`` and audio's ``batch["frames"]``; ``loss``
 is the reference's ``lm_loss`` / ``encdec_loss`` (the training path:
-``repro_torch.training``).
+``repro_torch.training``), ``loss(params, batch, mesh)`` on a mesh.
 
 The reference's ``init`` returns ``(params, axes)`` and ``decode_init``
 ``(caches, axes)``; here ``init`` and ``decode_init`` return the tensors
@@ -18,7 +18,9 @@ mesh=mesh)`` draws each leaf whole from the seed and keeps this rank's
 block, so a sharded model has the unsharded one's weights, and
 :func:`shard_params` places a full tree — and ``forward(params, batch,
 mesh)`` / ``decode_step(..., mesh=mesh)`` run the models' mesh path,
-returning DTensor logits (``full_tensor()`` gathers them).
+returning DTensor logits (``full_tensor()`` gathers them), and
+``loss(params, batch, mesh)`` the global batch's loss, differentiable
+through the mesh bodies (``training.make_train_step(mesh=)``).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ class ModelAPI:
     cfg: Any
     device: torch.device
     init: Callable         # (seed or torch.Generator, mesh=None) -> params
-    loss: Callable         # (params, batch) -> (loss, metrics)
+    loss: Callable         # (params, batch, mesh=None) -> (loss, metrics)
     forward: Callable      # (params, batch, mesh=None) -> logits (prefill)
     decode_init: Callable  # (batch, kv_len, mesh=None) -> caches
     decode_step: Callable  # (params, caches, token, pos, active=None,
@@ -50,8 +52,11 @@ class ModelAPI:
 
 def shard_params(params, axes, mesh):
     """A full parameter tree (the same on every rank) placed on ``mesh``
-    by its logical ``axes``: each rank keeps its block."""
-    return tree_zip_map(lambda ax, t: distribute(t, ax, mesh), axes, params)
+    by its logical ``axes``: each rank keeps its block.  A leaf of no
+    axes (``()``: the optimizer state's step, :meth:`repro_torch.optim.
+    AdamW.state_axes`) stays as it is."""
+    return tree_zip_map(lambda ax, t: t if ax == () else
+                        distribute(t, ax, mesh), axes, params)
 
 
 def build_model(cfg, device: Optional[Union[str, torch.device]] = None
@@ -83,7 +88,8 @@ def build_model(cfg, device: Optional[Union[str, torch.device]] = None
 
         return ModelAPI(
             forward=forward,
-            loss=lambda params, batch: ED.encdec_loss(params, cfg, batch),
+            loss=lambda params, batch, mesh=None: ED.encdec_loss(
+                params, cfg, batch, mesh),
             decode_init=lambda batch, kv_len, mesh=None: ED.init_decode_state(
                 cfg, batch, kv_len, dev, mesh=mesh),
             decode_step=lambda params, caches, token, pos, active=None,
@@ -97,7 +103,8 @@ def build_model(cfg, device: Optional[Union[str, torch.device]] = None
 
     return ModelAPI(
         forward=forward,
-        loss=lambda params, batch: T.lm_loss(params, cfg, batch),
+        loss=lambda params, batch, mesh=None: T.lm_loss(params, cfg, batch,
+                                                        mesh),
         decode_init=lambda batch, kv_len, mesh=None: T.init_decode_state(
             cfg, batch, kv_len, dev, mesh=mesh),
         decode_step=lambda params, caches, token, pos, active=None,

@@ -30,6 +30,10 @@ layer runs under ``torch.utils.checkpoint.checkpoint(use_reentrant=
 False)``, as the reference runs its layer scan under ``jax.checkpoint``:
 the backward recomputes the layer, so the flash kernel launches twice
 per attention layer and step.  Prefill and decode take no gradient.
+On a mesh (``lm_loss(..., mesh)``) the loss is the same global mean on
+every rank (:func:`_ce` reduces over the batch's and the vocabulary's
+axes), and the recompute re-runs each body's collectives in the same
+order on every rank.
 
 A family the reference does not know raises ``ValueError``, as its
 ``_layer_fwd`` does.
@@ -58,6 +62,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..sharding import shard_activation
 from ..sharding.axes import zeros as mesh_zeros
+from ..sharding.collectives import Local
 from . import attention as A
 from . import layers as L
 from . import moe as M
@@ -250,36 +255,75 @@ def first_position(logits):
                   logits.device_mesh)(logits)
 
 
-def lm_loss(params, cfg, batch):
+def lm_loss(params, cfg, batch, mesh=None):
     """Mean next-token CE over valid (label >= 0) text positions + 0.01 *
-    MoE aux -> (loss, {"ce", "aux", "tokens"}), f32 0-d tensors."""
+    MoE aux -> (loss, {"ce", "aux", "tokens"}), f32 0-d tensors (plain
+    tensors, the same on every rank of a mesh: the CE over the global
+    batch's valid tokens)."""
     logits, aux, n_prefix = lm_forward(params, cfg, batch["tokens"],
-                                       batch.get("patches"))
-    if n_prefix:
-        logits = logits[:, n_prefix:]
-    ce, denom = _ce(logits, batch["labels"], cfg)
+                                       batch.get("patches"), mesh)
+    ce, denom = _ce(logits, batch["labels"], cfg, n_prefix)
     loss = ce / denom + 0.01 * aux
     return loss, {"ce": ce / denom, "aux": aux, "tokens": denom}
 
 
-def _ce(logits, labels, cfg):
-    """(summed CE, valid-label count) in f32: the padded vocabulary's
-    logits masked to -1e30, each label's logit picked (0 for a label
-    past the padded vocabulary, as the reference's one-hot picks)."""
+def _ce(logits, labels, cfg, n_prefix: int = 0):
+    """(summed CE, valid-label count) in f32 over the positions from
+    ``n_prefix`` on: the padded vocabulary's logits masked to -1e30,
+    each label's logit picked (0 for a label past the padded vocabulary,
+    as the reference's one-hot picks).  On a mesh (DTensor logits laid
+    out as ``("batch", None, "act_vocab")``) each rank takes its rows and
+    vocabulary slice: the log-sum-exp's max and sum and the picked logit
+    are reduced over the vocabulary's axes, the CE and the count over the
+    batch's, and both come back as plain tensors, the same on every
+    rank."""
+    if not L.is_dtensor(logits):
+        return _ce_local(logits, labels, cfg, n_prefix, Local(None), (),
+                         ())
+    from torch.distributed.tensor import Replicate
+
+    mesh = logits.device_mesh
+    labels = shard_activation(labels, ("batch", None), mesh)
+    loc = Local(mesh)
+    v_axes, b_axes = L.sharded_axes(logits, 2), L.sharded_axes(logits, 0)
+    whole = [Replicate()] * mesh.ndim
+    ce, denom = L.on_shards(
+        lambda lg, lb: _ce_local(lg, lb, cfg, n_prefix, loc, v_axes,
+                                 b_axes), (whole, whole), logits, labels)
+    return ce.to_local(), denom.to_local()
+
+
+def _ce_local(logits, labels, cfg, n_prefix, loc: Local, v_axes, b_axes):
+    """:func:`_ce` on one rank's rows and vocabulary slice (the whole of
+    both off a mesh).  Every reduction's result is the same on every
+    rank, which goes on with it whole (the identity backward)."""
+    if n_prefix:
+        logits = logits[:, n_prefix:]
     logits = logits.float()
-    vp = logits.shape[-1]
+    vl = logits.shape[-1]
+    v0 = loc.rank(v_axes) * vl
+    vp = vl * loc.size(v_axes)
     if vp > cfg.vocab_size:
-        iota = torch.arange(vp, device=logits.device)
+        iota = torch.arange(v0, v0 + vl, device=logits.device)
         logits = torch.where(iota < cfg.vocab_size, logits, -1e30)
-    lse = torch.logsumexp(logits, dim=-1)
+    if v_axes:
+        m = loc.all_reduce(logits.detach().amax(-1, keepdim=True), v_axes,
+                           "max")
+        lse = torch.log(loc.all_reduce(torch.exp(logits - m).sum(-1),
+                                       v_axes)) + m[..., 0]
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
     labels = labels.long()
-    inside = (labels >= 0) & (labels < vp)
-    picked = torch.where(
-        inside, logits.gather(-1, labels.clamp(0, vp - 1)[..., None])[..., 0],
-        0.0)
+    at = labels - v0
+    inside = (labels >= 0) & (labels < vp) & (at >= 0) & (at < vl)
+    picked = loc.all_reduce(torch.where(
+        inside, logits.gather(-1, at.clamp(0, vl - 1)[..., None])[..., 0],
+        0.0), v_axes)
     valid = labels >= 0
-    ce = torch.sum(torch.where(valid, lse - picked, 0.0))
-    denom = torch.clamp(torch.sum(valid), min=1).to(torch.float32)
+    ce = loc.all_reduce(torch.sum(torch.where(valid, lse - picked, 0.0)),
+                        b_axes)
+    denom = torch.clamp(loc.all_reduce(torch.sum(valid), b_axes),
+                        min=1).to(torch.float32)
     return ce, denom
 
 

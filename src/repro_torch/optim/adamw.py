@@ -14,6 +14,13 @@ writes the new parameters and moments into the tensors it is given and
 returns the same trees: one card holds one copy of them.  The step and
 the schedule are host scalars (the step lives on the CPU), computed in
 float32 as the reference computes them.
+
+On a ``DeviceMesh`` the parameters, gradients and moments are DTensors
+of the same placements (:meth:`AdamW.state_axes`: the moments take the
+parameters' logical axes, a ZeRO-style sharded state), and the update
+runs on each rank's local blocks.  :func:`global_norm` sums every
+distinct block once over the mesh, so the norm and the clip scale are
+the global ones.
 """
 
 from __future__ import annotations
@@ -68,10 +75,39 @@ def tree_map(fn: Callable, tree, *rest):
     return None if tree is None else fn(tree, *rest)
 
 
+def _local(t):
+    """A DTensor's local block (a view: writes reach the DTensor); a
+    plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def global_norm(grads) -> torch.Tensor:
-    """sqrt(sum of squares) of every leaf, in f32, on the leaves' device."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(grads)))
+    """sqrt(sum of squares) of every leaf, in f32, on the leaves' device.
+    DTensor leaves: each rank sums its blocks' squares, counted only by
+    the rank at coordinate 0 of the mesh axes the leaf is whole on (so
+    each block once), and one sum over the mesh gives every rank the
+    global norm, a plain tensor."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    leaves = tree_leaves(grads)
+    mesh = next((g.device_mesh for g in leaves if isinstance(g, DTensor)),
+                None)
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in leaves))
+    coord = mesh.get_coordinate()
+    total = None
+    for g in leaves:
+        sq = torch.sum(torch.square(_local(g).float()))
+        if any(isinstance(p, Replicate) and coord[d] != 0
+               for d, p in enumerate(g.placements)):
+            sq = torch.zeros_like(sq)
+        total = sq if total is None else total + sq
+    total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                               run_check=False).full_tensor()
+    return torch.sqrt(total)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,11 +120,18 @@ class AdamW:
     clip_norm: float = 1.0
 
     def init(self, params) -> Dict[str, Any]:
+        """f32 zero moments shaped (and, for DTensor parameters, placed)
+        like the parameters; the step an int32 on the CPU."""
         def zeros(t):
-            return tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), t)
+            return tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), t)
         return {"m": zeros(params), "v": zeros(params),
                 "step": torch.zeros((), dtype=torch.int32)}
+
+    def state_axes(self, param_axes) -> Dict[str, Any]:
+        """The logical axes of :meth:`init`'s state: the moments'
+        are the parameters'; the step has none."""
+        return {"m": param_axes, "v": param_axes, "step": ()}
 
     @torch.no_grad()
     def update(self, grads, state, params
@@ -102,9 +145,8 @@ class AdamW:
         bc1 = float(1 - _f32(b1) ** s32)
         bc2 = float(1 - _f32(b2) ** s32)
 
-        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                              tree_leaves(state["m"]),
-                              tree_leaves(state["v"])):
+        for p, g, m, v in zip(*(map(_local, tree_leaves(t)) for t in (
+                params, grads, state["m"], state["v"]))):
             g = g.float() * scale
             m.mul_(b1).add_(g * (1 - b1))
             v.mul_(b2).add_(g.mul(1 - b2).mul_(g))

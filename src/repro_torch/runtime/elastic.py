@@ -9,9 +9,10 @@ PartitionSpec, so any DP degree works), and rescale grad-accumulation to
 preserve the global batch.
 
 The port's own copy of ``repro.runtime.elastic`` (pure Python): the same
-plans for the same membership.  The port's ``CheckpointManager`` holds no
-``PartitionSpec`` (one card); its restore puts every array on the
-template's device.
+plans for the same membership.  The port's ``CheckpointManager`` writes
+each leaf's spec and restores onto any mesh (``restore(...,
+shardings=)``), so a plan's new mesh takes the saved state
+(``tests/test_torch_mesh_restart.py``: (4, 2) to (2, 2)).
 """
 
 from __future__ import annotations

@@ -31,6 +31,7 @@ tests and for a mesh of cards in ``launch.dryrun``'s per-card reckoning.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -208,12 +209,8 @@ def shard_activation(x, logical_axes: Sequence[Optional[str]], mesh=None):
 def distribute(t: torch.Tensor, axes: Sequence[Optional[str]], mesh):
     """A full tensor (the same on every rank) placed on ``mesh`` by its
     logical axes: each rank keeps its block, nothing is sent."""
-    from torch.distributed.tensor import DTensor
-
     pl = placements(logical_to_spec(axes, tuple(t.shape), mesh), mesh)
-    return DTensor.from_local(local_block(t, pl, mesh), mesh, pl,
-                              run_check=False, shape=t.shape,
-                              stride=t.stride())
+    return NamedSharding(mesh, tuple(pl)).place(t)
 
 
 def local_block(t: torch.Tensor, pl, mesh) -> torch.Tensor:
@@ -243,3 +240,60 @@ def zeros(shape: Sequence[int], axes: Sequence[Optional[str]], mesh, *,
     return DTensor.from_local(local, mesh, placements(spec, mesh),
                               run_check=False, shape=full.shape,
                               stride=full.stride())
+
+
+def mesh_device(mesh) -> torch.device:
+    """This rank's device of ``mesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a placement list: the counterpart of the reference's
+    ``jax.sharding.NamedSharding`` (a mesh and a ``PartitionSpec``)."""
+    mesh: Any
+    placements: Tuple[Any, ...]
+
+    def place(self, t: torch.Tensor):
+        """The full tensor ``t`` (the same on every rank) as a DTensor on
+        this rank's device of the mesh, each rank keeping its block,
+        nothing sent: the counterpart of ``jax.device_put(arr,
+        sharding)``."""
+        from torch.distributed.tensor import DTensor
+
+        t = t.to(mesh_device(self.mesh))
+        pl = list(self.placements)
+        return DTensor.from_local(local_block(t, pl, self.mesh), self.mesh,
+                                  pl, run_check=False, shape=t.shape,
+                                  stride=t.stride())
+
+
+def spec_of(placements_, mesh, ndim: int) -> Spec:
+    """The per-dimension spec entries of ``placements_`` on ``mesh``
+    (the inverse of :func:`placements`): ``None``, an axis name, or a
+    tuple of names in the mesh's order."""
+    names = mesh_axis_names(mesh)
+    from torch.distributed.tensor import Shard
+
+    out = []
+    for i in range(ndim):
+        axes = tuple(n for n, p in zip(names, placements_)
+                     if isinstance(p, Shard) and p.dim == i)
+        out.append(None if not axes else axes[0] if len(axes) == 1
+                   else axes)
+    return tuple(out)
+
+
+def sharding_tree(axes_tree: Any, shape_tree: Any, mesh,
+                  rules: Optional[Dict[str, Any]] = None) -> Any:
+    """A tree of :class:`NamedSharding` of ``mesh`` by logical axes (the
+    reference's ``NamedSharding(mesh, spec)`` over :func:`spec_tree`).
+    A 0-d leaf gets None: it has nothing to place, and stays where it is
+    (the optimizer's step, a host scalar)."""
+    return tree_zip_map(
+        lambda axes, leaf: None if len(leaf.shape) == 0 else NamedSharding(
+            mesh, tuple(placements(logical_to_spec(
+                axes, tuple(leaf.shape), mesh, rules), mesh))),
+        axes_tree, shape_tree)

@@ -962,3 +962,41 @@ def test_cells_train_on_card(cuda):
         float(met["grad_norm"]))
     for a, b in zip(before, tree_leaves(params)):
         assert bool(torch.isfinite(b).all()) and not torch.equal(a, b)
+
+
+def test_mesh_train_step_on_card_matches_unsharded(cuda):
+    """Phase 12's step at a cut depth: granite-20b's smoke config (bf16
+    compute), 2 steps at accumulation 2 of batch 4 x 128, through
+    ``build_cell(..., mesh)`` on a (1, 1) DeviceMesh of an NCCL world of
+    one and on the card unsharded, from the same draw.  At world 1 the
+    mesh bodies keep the unsharded arithmetic: the losses, the gradient
+    norms and the parameters are equal; the flash kernel launches 2 x
+    layers x microbatches a step, all on the tensor cores."""
+    import importlib.util
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = get_config("granite-20b").smoke()
+    started = not dist.is_initialized()
+    init_distributed("cuda")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        runs = [smoke.train_cell_run("granite-20b", cfg, (4, 128), where,
+                                     2, 2) for where in ("cuda", mesh)]
+    finally:
+        if started:
+            dist.destroy_process_group()
+    (_, p1, _, _, one, _), (cell, pm, _, _, got, (fl, fl90)) = runs
+    assert cell.accum == 2
+    assert fl == fl90 == 2 * 2 * cfg.n_layers * cell.accum
+    for a, b in zip(one, got):
+        assert a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+    assert smoke._max_diff(pm, smoke._to_host(p1)) == 0

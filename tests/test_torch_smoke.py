@@ -461,3 +461,23 @@ def test_cell_cuts_reckoned_for_the_card():
                 assert shape.seq_len == 32768
                 calls = chip_smoke.prefill_attention_calls(cfg, shape)
                 assert len(calls) == chip_smoke.attention_calls(cfg)
+
+
+def test_mesh_train_phase_runs_on_cpu():
+    """Phase 12 at the smoke configs on a (1, 1) mesh of a gloo world of
+    one: (a) the mesh train step equals the unsharded one exactly (the
+    bodies keep the unsharded arithmetic at world 1); (b) the
+    expert-parallel step is within its f32 bound of the dense dispatch's;
+    (c) a save on the mesh restored onto it and unsharded, each taking
+    the uninterrupted run's second step exactly."""
+    out = chip_smoke.run_mesh_train_phase("cpu", device="cpu")
+    a, b, c = out["a"], out["b"], out["c"]
+    assert a["exact"], a
+    assert a["accum"] == chip_smoke.MESH_TRAIN_ACCUM
+    assert len(a["mesh_steps"]) == chip_smoke.MESH_TRAIN_STEPS
+    assert a["flash_check"] == []           # the kernel is the card's
+    assert b["m_rel_err"] <= b["tol"] and b["loss_rel_err"] <= b["tol"]
+    assert b["drops_no_drops_capacity"] == 0
+    assert c["losses"]["restored_on_mesh"] == c["losses"]["uninterrupted"]
+    assert c["unsharded_exact"], c
+    assert "multi" not in out
