@@ -315,6 +315,18 @@ Phases (1-3, 3b-3e, 4-11), each of which raises on failure (exit code
              (a)'s mesh step in a world of min(4, n) on (2, 2) or (2, 1),
              within MESH_TRAIN_BF16_RTOL of the world-1 step.  Step ms
              (CUDA events), peak GB, the phase's seconds.
+13. mesh analysis — in a child process that sees no card, the per-card
+             step analysis (``launch.dryrun.analyze_cell`` on a mesh of
+             ``launch.mesh.abstract_world``, meta tensors) of the exact
+             configurations 12 (a) and 11 ran on (1, 1) (granite-20b x
+             TRAIN_LAYERS train, gemma3-27b x 6 prefill), and with n >= 2
+             cards of their multi-card meshes: per-card FLOPs, HBM bytes
+             and collective bytes, the three roofline terms over
+             ``launch.roofline``'s data-sheet rates, and the bound beside
+             the step ms those phases measured (bound / the slowest
+             rank's).  On (1, 1) the FLOPs and HBM bytes must equal the
+             one-card analysis and the collective bytes 0; every run must
+             be analysed.
 
 The line before the last is one JSON object with a ``kernels`` list (all
 five kernels and the ``lsh_hash_resolve`` and fused
@@ -5941,6 +5953,187 @@ def print_mesh_train_phase(mt: dict) -> None:
 
 
 # ---------------------------------------------------------------------- #
+# the mesh analysis (phase 13): the per-card step analysis of what phases
+# 11 and 12 ran, on meta tensors in a fake world of the mesh's size, in a
+# process of its own that sees no card; the bounds beside the step ms
+# those phases measured
+# ---------------------------------------------------------------------- #
+MESH_ANALYSIS_TIMEOUT_S = 300
+
+
+def mesh_analysis_runs(cards: int) -> list:
+    """Phase 13's configurations, each the exact one a phase ran: 12 (a)
+    (granite-20b x TRAIN_LAYERS at phase 8's batch, accumulation
+    MESH_TRAIN_ACCUM) and 11's first world-1 arch (gemma3-27b x 6,
+    prefill at MESH_PREFILL) on (1, 1); with n >= 2 cards also 12's
+    multi-card mesh ((2, 2) at 4 cards, else (2, 1)) and 11's
+    (MESH_MULTI_RUNS' prefills on (1, min(4, n)))."""
+    dense = dict(arch=TRAIN_ARCH, shape="train_4k", layers=TRAIN_LAYERS,
+                 batch=(TRAIN_BATCH, TRAIN_SEQ), accum=MESH_TRAIN_ACCUM)
+    arch, layers = MESH_WORLD1_RUNS[0]
+    runs = [dict(dense, phase="12 (a)", mesh=(1, 1)),
+            dict(arch=arch, shape="prefill_32k", layers=layers,
+                 batch=MESH_PREFILL, accum=None, phase="11", mesh=(1, 1))]
+    if cards >= 2:
+        n = min(4, cards)
+        runs.append(dict(dense, phase="12 multi",
+                          mesh=(2, 2) if n == 4 else (2, 1)))
+        runs += [dict(arch=a, shape="prefill_32k", layers=k,
+                      batch=MESH_PREFILL, accum=None, phase="11 multi",
+                      mesh=(1, n)) for a, k in MESH_MULTI_RUNS]
+    return runs
+
+
+def mesh_analysis(runs: list) -> list:
+    """Each run's ``launch.dryrun.analyze_cell`` on its mesh (an
+    ``abstract_world``), with the three roofline terms over the
+    data-sheet rates of ``launch.roofline``; on (1, 1) also the one-card
+    analysis of the same cell.  A run that fails is a record with
+    ``status`` ``error``."""
+    import dataclasses
+    import traceback
+
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch.dryrun import analyze_cell
+    from repro_torch.launch.mesh import abstract_world
+    from repro_torch.launch.roofline import HBM_BW, LINK_BW, PEAK_FLOPS
+
+    out = []
+    for run in runs:
+        rec = dict(run, status="ok")
+        t0 = time.perf_counter()
+        try:
+            cfg = dataclasses.replace(get_config(run["arch"]),
+                                      n_layers=run["layers"])
+            b, s = run["batch"]
+            shape = dataclasses.replace(get_shape(run["shape"]), seq_len=s,
+                                        global_batch=b)
+            kw = dict(cfg=cfg, shape=shape, grad_accum=run["accum"])
+            with abstract_world(run["mesh"]) as mesh:
+                a = analyze_cell(run["arch"], run["shape"], mesh=mesh, **kw)
+            keys = ("flops_per_device", "hbm_bytes_per_device",
+                    "collective_bytes_per_device", "per_collective",
+                    "peak_bytes_per_device", "state_bytes_per_card")
+            rec.update({k: a[k] for k in keys})
+            rec["grad_accum"] = a.get("grad_accum")
+            terms = {"compute": a["flops_per_device"] / PEAK_FLOPS,
+                     "memory": a["hbm_bytes_per_device"] / HBM_BW,
+                     "collective": a["collective_bytes_per_device"]
+                     / LINK_BW}
+            rec["terms_ms"] = {k: v * 1e3 for k, v in terms.items()}
+            rec["dominant"] = max(terms, key=terms.get)
+            rec["bound_ms"] = rec["terms_ms"][rec["dominant"]]
+            if tuple(run["mesh"]) == (1, 1):
+                one = analyze_cell(run["arch"], run["shape"], **kw)
+                rec["one_card"] = {k: one[k] for k in (
+                    "flops_per_device", "hbm_bytes_per_device")}
+        except Exception as e:  # noqa: BLE001 — a failed run is a record
+            rec.update(status="error", error=f"{type(e).__name__}: {e}",
+                       traceback=traceback.format_exc()[-2000:])
+        rec["analyze_s"] = time.perf_counter() - t0
+        out.append(rec)
+    return out
+
+
+def mesh_analysis_main(cards: int) -> None:
+    """Phase 13's child process: prints ``mesh_analysis <json>``."""
+    sys.path.insert(0, str(PKG.parent))
+    print("mesh_analysis " + json.dumps(
+        mesh_analysis(mesh_analysis_runs(cards))), flush=True)
+
+
+def mesh_analysis_gates(recs: list) -> None:
+    """Every run ``ok``; on (1, 1) the FLOPs and HBM bytes those of the
+    one-card analysis and no collective bytes; on a mesh of several
+    cards some."""
+    for r in recs:
+        tag = f"13: {r['arch']} x {r['layers']}L on {tuple(r['mesh'])}"
+        if r["status"] != "ok":
+            raise AssertionError(f"{tag}: {r.get('error')}\n"
+                                 f"{r.get('traceback', '')}")
+        if tuple(r["mesh"]) == (1, 1):
+            got = {k: r[k] for k in r["one_card"]}
+            if got != r["one_card"] or r["collective_bytes_per_device"]:
+                raise AssertionError(
+                    f"{tag}: {got}, collective bytes "
+                    f"{r['collective_bytes_per_device']} against the "
+                    f"one-card analysis {r['one_card']}")
+        elif not r["collective_bytes_per_device"] > 0:
+            raise AssertionError(f"{tag}: no collective bytes")
+
+
+def measured_step_ms(run: dict, mesh: dict, mt: dict) -> list:
+    """The step ms per rank that phase 11 or 12 measured for ``run``:
+    12's last step (CUDA events), 11's prefill (a mean of 2)."""
+    if run["phase"].startswith("12"):
+        if run["phase"] == "12 (a)":
+            return [mt["a"]["mesh_steps"][-1]["ms"]]
+        return [r["steps"][-1]["ms"] for r in mt["multi"]["ranks"]]
+    part = mesh["parts"][0 if run["phase"] == "11" else 1]
+    i = [a["arch"] for a in part["ranks"][0]["archs"]].index(run["arch"])
+    return [r["archs"][i]["own"]["prefill_ms"] for r in part["ranks"]]
+
+
+def mesh_analysis_child(cards: int) -> list:
+    """:func:`mesh_analysis` of :func:`mesh_analysis_runs` in a child
+    process that sees no card (so the fake world never shares a process
+    with phases 11 and 12), held to :func:`mesh_analysis_gates`."""
+    import os
+
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; chip_smoke.mesh_analysis_main({cards})")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT,
+                         timeout=MESH_ANALYSIS_TIMEOUT_S)
+    lines = [ln for ln in res.stdout.splitlines()
+             if ln.startswith("mesh_analysis ")]
+    if res.returncode != 0 or not lines:
+        raise RuntimeError(f"13: the analysis process exited "
+                           f"{res.returncode}:\n{res.stderr[-3000:]}")
+    recs = json.loads(lines[-1][len("mesh_analysis "):])
+    mesh_analysis_gates(recs)
+    return recs
+
+
+def run_mesh_analysis_phase(card: str, cards: int, mesh: dict,
+                            mt: dict) -> dict:
+    """Phase 13: :func:`mesh_analysis_child`, then each run's bound beside
+    the step ms its phase measured (the share of the slowest rank's)."""
+    t0 = time.perf_counter()
+    recs = mesh_analysis_child(cards)
+    for r in recs:
+        r["measured_ms"] = measured_step_ms(r, mesh, mt)
+        r["bound_share"] = r["bound_ms"] / max(r["measured_ms"])
+    return {"card": card, "runs": recs, "wall_s": time.perf_counter() - t0}
+
+
+def print_mesh_analysis_phase(ma: dict) -> None:
+    card = ma["card"]
+    for r in ma["runs"]:
+        b, s = r["batch"]
+        t = r["terms_ms"]
+        print(f"mesh analysis: {r['arch']} x {r['layers']}L {r['shape']} "
+              f"{b} x {s}" + (f", accumulation {r['grad_accum']}"
+                              if r["grad_accum"] else "")
+              + f" on {tuple(r['mesh'])} (phase {r['phase']}): per card "
+              f"{r['flops_per_device']:.6e} FLOPs, "
+              f"{r['hbm_bytes_per_device']:.6e} HBM bytes, "
+              f"{r['collective_bytes_per_device']:.6e} collective bytes "
+              f"{json.dumps(r['per_collective'])}; T_comp "
+              f"{t['compute']:.3f} ms, T_mem {t['memory']:.3f} ms, T_coll "
+              f"{t['collective']:.3f} ms (989 TFLOP/s, 3.35 TB/s, 450 GB/s "
+              f"data sheet) -> bound {r['bound_ms']:.3f} ms "
+              f"({r['dominant']}); measured step "
+              f"{[round(v, 2) for v in r['measured_ms']]} ms a rank, bound"
+              f" / slowest {r['bound_share']:.4f}; analysed in "
+              f"{r['analyze_s']:.1f} s  [{card}]", flush=True)
+    print(f"mesh analysis: phase {ma['wall_s']:.1f} s  [{card}]",
+          flush=True)
+    print("mesh_analysis_path " + json.dumps(ma), flush=True)
+
+
+# ---------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--points", type=int, default=STREAM_POINTS,
@@ -6288,6 +6481,13 @@ def main(argv=None) -> int:
     #     checkpoint restart; with n >= 2 cards a world of min(4, n)
     mt = run_mesh_train_phase(card)
     print_mesh_train_phase(mt)
+
+    mark("phase 13 (mesh analysis)")
+    # 13. the per-card step analysis of phases 11 and 12's configurations
+    #     (a process of its own, no card), their bounds beside the
+    #     measured steps
+    print_mesh_analysis_phase(run_mesh_analysis_phase(card, count, mesh,
+                                                      mt))
     for k in kernels:
         if k["name"] == "flash_attention":
             k["families_launches"] = {

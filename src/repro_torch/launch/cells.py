@@ -25,9 +25,13 @@ device (one card: today's cells) or a ``torch.distributed``
 * ``args`` are ``meta`` tensors of the full shapes, the counterpart of
   the reference's ``ShapeDtypeStruct`` trees: parameters from
   :func:`abstract_params`, the optimizer state, the batch of
-  :func:`batch_specs`, caches from the model's ``decode_init``.
-  :meth:`Cell.inputs` makes real ones on the cell's device (or mesh)
-  from a seed.
+  :func:`batch_specs`, caches from the model's ``decode_init``.  On a
+  mesh they are DTensors of ``meta`` blocks, laid out by their logical
+  axes as :meth:`Cell.inputs` lays out real ones (the reference's
+  structs carry their shardings); in ``launch.mesh.abstract_world`` the
+  model, too, is on ``meta``, and ``analyze_step`` counts one rank's
+  step.  :meth:`Cell.inputs` makes real ones on the cell's device (or
+  mesh) from a seed.
 * No donation.  The reference donates params and optimizer state to the
   train step and the caches to the decode step.  Here the train step's
   AdamW writes the new parameters and moments into the tensors it is
@@ -64,7 +68,8 @@ from ..configs import ArchConfig, ShapeConfig, get_config, get_shape
 from ..models.registry import ModelAPI, build_model
 from ..optim import AdamW, warmup_cosine
 from ..optim.adamw import tree_map
-from ..sharding.axes import distribute, local_block, mesh_device
+from ..sharding.axes import (distribute, local_block, mesh_device,
+                             tree_zip_map)
 from ..sharding.collectives import Local
 from ..training import make_train_step
 
@@ -243,6 +248,15 @@ def build_cell(arch_id: str, shape_id: str, device="cuda",
         dev = torch.device(device)
     model = build_model(cfg, device=dev)
     params = abstract_params(model)
+
+    def place(tree, axes):
+        # meta DTensors laid out by ``axes`` on the mesh (as is, off one)
+        if mesh is None:
+            return tree
+        return tree_zip_map(lambda ax, t: distribute(t, ax, mesh), axes,
+                            tree)
+
+    params = place(params, model.axes())
     common = dict(arch=arch_id, shape=shape_id, cfg=cfg, kind=shape.kind,
                   device=dev, model=model, shape_cfg=shape, mesh=mesh)
 
@@ -256,6 +270,7 @@ def build_cell(arch_id: str, shape_id: str, device="cuda",
         opt = AdamW(lr=warmup_cosine(3e-4, 100, 10_000))
         batch = {k: s.meta() for k, s in
                  batch_specs(cfg, shape, with_labels=True).items()}
+        batch = place(batch, {k: BATCH_AXES[k] for k in batch})
         step = make_train_step(model, opt, mesh=mesh, grad_accum=accum)
         return Cell(step_fn=step, args=(params, opt.init(params), batch),
                     accum=accum, optimizer=opt, **common)
@@ -263,12 +278,14 @@ def build_cell(arch_id: str, shape_id: str, device="cuda",
     if shape.kind == "prefill":
         batch = {k: s.meta() for k, s in
                  batch_specs(cfg, shape, with_labels=False).items()}
+        batch = place(batch, {k: BATCH_AXES[k] for k in batch})
         return Cell(step_fn=_prefill_fn(model, mesh), args=(params, batch),
                     **common)
 
     B, S = shape.global_batch, shape.seq_len
-    caches = build_model(cfg, device="meta").decode_init(B, S)
-    token = Spec((B, 1), torch.int32).meta()
+    caches = place(build_model(cfg, device="meta").decode_init(B, S),
+                   model.decode_axes())
+    token = place(Spec((B, 1), torch.int32).meta(), BATCH_AXES["tokens"])
     pos = Spec((), torch.int32).meta()
     return Cell(step_fn=_decode_fn(model, mesh),
                 args=(params, caches, token, pos), **common)

@@ -1,7 +1,8 @@
-"""Single-card dry run: every (architecture × input shape) cell at its
-full published size, analysed without allocation.
+"""Dry run: every (architecture × input shape) cell at its full
+published size, analysed without allocation, on one card or per card on
+a mesh of four.
 
-The counterpart of ``repro.launch.dryrun`` for one NVIDIA H100.  The
+The counterpart of ``repro.launch.dryrun`` for NVIDIA H100s.  The
 reference lowers and compiles each cell with XLA on 256- and 512-chip
 meshes of placeholder devices and records XLA's memory and cost
 analyses; here each cell is built on ``meta`` tensors
@@ -19,15 +20,26 @@ analysis), and in place of ``memory_analysis``:
 * ``peak_bytes_per_device``: that state plus the most the step's own
   tensors hold at once (``analyze_step``).
 
-``--mesh 1x4`` / ``--mesh 2x2`` (data x model) records, per cell, what
-one card of four holds when the cell's parameters, optimizer state,
-caches and inputs are laid out by their logical axes
-(``sharding.logical_to_spec`` over a ``(data, model)`` mesh of that
-shape, as the reference's per-mesh records are): ``state_bytes_per_card``
-(the largest block, every rank's being the same) and ``fits_mesh``
-(within one card's 80 GB) — which published cells fit four H100s whole.
-These records carry no step analysis (``mesh`` = ``"1x4"`` or ``"2x2"``,
-``chips`` = 4); the reckoning is host-only work on ``meta``.
+``--mesh 1x4`` / ``--mesh 2x2`` (data x model) records carry the same
+analysis per card, as the reference's per-mesh records do: the cell is
+built on a ``(data, model)`` ``DeviceMesh`` of that shape in
+``launch.mesh.abstract_world`` (rank 0 of a world of four with no
+cards), its parameters, optimizer state, caches and inputs laid out by
+their logical axes (``sharding.logical_to_spec``) as ``meta`` DTensors,
+and its step runs once under ``analyze_step``, which counts rank 0's
+operations and the wire bytes of the collectives it runs
+(``collective_bytes_per_device``, ``per_collective``).  With them:
+``state_bytes`` (the whole state), ``state_bytes_per_card`` (rank 0's
+blocks; every rank's are the same size) and ``fits_mesh`` (within one
+card's 80 GB) — which published cells fit four H100s whole.  ``mesh`` =
+``"1x4"`` or ``"2x2"``, ``chips`` = 4.  A moe cell on a mesh takes the
+expert-parallel dispatch, which bounds each expert's tokens by its
+capacity; on one card it takes the dense dispatch, so their counts
+differ.
+
+``--sp`` analyses each cell with ``seq_shard_activations=True`` (the
+residual stream sharded over ``model`` on the sequence), its records'
+``arch`` written ``arch+sp``, as the reference's ``--sp`` does.
 
 Records go to ``results/torch_dryrun.json`` (merged over the records
 already there, cell by cell); ``python -m repro_torch.launch.roofline``
@@ -40,6 +52,7 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --smoke \\
       --out /tmp/smoke.json     # every cell, smoke configs, shapes / 32
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh 1x4
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh 2x2 --sp
 """
 
 from __future__ import annotations
@@ -50,15 +63,13 @@ import json
 import time
 import traceback
 from pathlib import Path
-from types import SimpleNamespace
 from typing import Optional
 
 from ..configs import (ARCH_IDS, SHAPES, ArchConfig, ShapeConfig,
                        cell_supported, get_config, get_shape)
-from ..optim.adamw import tree_leaves
-from ..sharding.axes import local_shape, logical_to_spec, tree_zip_map
-from .cells import BATCH_AXES, build_cell
-from .step_analysis import analyze_step, tree_bytes
+from .cells import build_cell
+from .mesh import abstract_world
+from .step_analysis import analyze_step, local_tensors, tree_bytes
 
 RESULTS = Path(__file__).resolve().parents[3] / "results"
 MESH = "1xH100"
@@ -67,54 +78,6 @@ CARD_BYTES = 80e9   # one H100 SXM's HBM3 (data sheet)
 SMOKE_DIVISOR = 32
 #: the (data, model) meshes of four cards ``--mesh`` reckons
 MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
-
-
-def host_mesh(shape) -> SimpleNamespace:
-    """A stand-in for a (data, model) mesh of ``shape``: its axis names
-    and extents, which is all the spec rules read."""
-    return SimpleNamespace(axis_names=("data", "model"),
-                           devices=SimpleNamespace(shape=tuple(shape)))
-
-
-def _block_bytes(axes, t, mesh) -> int:
-    spec = logical_to_spec(axes, tuple(t.shape), mesh)
-    n = 1
-    for d in local_shape(tuple(t.shape), spec, mesh):
-        n *= d
-    return n * t.element_size()
-
-
-def mesh_state_bytes(cell, mesh) -> int:
-    """Bytes one rank holds of ``cell``'s state laid out on ``mesh``:
-    parameters (and AdamW's moments) by the parameters' axes, caches by
-    the caches', the batch by ``batch``; scalars whole."""
-    paxes = cell.model.axes()
-    total = 0
-
-    def add(axes, tree):
-        nonlocal total
-        total += sum(tree_leaves(tree_zip_map(
-            lambda ax, t: _block_bytes(ax, t, mesh), axes, tree)))
-
-    if cell.kind == "train":
-        params, opt, batch = cell.args
-        add(paxes, params)
-        add(paxes, opt["m"])
-        add(paxes, opt["v"])
-        total += sum(t.numel() * t.element_size() for k, t in opt.items()
-                     if k not in ("m", "v"))
-    elif cell.kind == "prefill":
-        params, batch = cell.args
-        add(paxes, params)
-    else:
-        params, caches, token, pos = cell.args
-        add(paxes, params)
-        add(cell.model.decode_axes(), caches)
-        batch = {"tokens": token}
-        total += pos.numel() * pos.element_size()
-    for k, t in batch.items():
-        total += _block_bytes(BATCH_AXES[k], t, mesh)
-    return total
 
 
 def smoke_shape(shape: ShapeConfig) -> ShapeConfig:
@@ -146,26 +109,36 @@ def at_depth(cfg: ArchConfig, n: int) -> ArchConfig:
 
 def analyze_cell(arch: str, shape_id: str, cfg: Optional[ArchConfig] = None,
                  shape: Optional[ShapeConfig] = None,
-                 grad_accum: Optional[int] = None) -> dict:
-    """``analyze_step`` of the cell built on ``meta``, plus its
-    ``state_bytes`` and ``grad_accum``.
+                 grad_accum: Optional[int] = None, mesh=None) -> dict:
+    """``analyze_step`` of the cell built on ``meta`` (or on ``mesh``, a
+    ``DeviceMesh`` of :func:`~.mesh.abstract_world`, where it counts one
+    rank's step), plus its ``state_bytes`` and ``grad_accum``; on a mesh
+    also ``state_bytes_per_card``.
 
     The reference's HLO analysis multiplies a loop body by its trip count
     (its layers are a ``lax.scan``).  The port's layers are a Python loop,
     which the analysis would walk layer by layer; so a deep stack is
     analysed at ``r + p`` and ``r + 2p`` layers (``p`` the
     ``layer_period``, ``r`` the depth modulo ``p``) and the difference,
-    one period's counts, is added for each further period.  That is exact
-    for FLOPs, bytes and operations, since every period runs the same
-    operations on the same shapes; the live-bytes peak grows by one
-    period's state and saved activations a period, as it does in the
-    step.  An encoder-decoder is extended only when both stacks have the
-    same depth (else analysed whole)."""
+    one period's counts, is added for each further period (key by key
+    for ``per_collective``).  That is exact for FLOPs, bytes, collective
+    bytes and operations, since every period runs the same operations on
+    the same shapes; the live-bytes peak grows by one period's state and
+    saved activations a period, as it does in the step.  An
+    encoder-decoder is extended only when both stacks have the same depth
+    (else analysed whole)."""
     cfg = cfg if cfg is not None else get_config(arch)
     shape = shape if shape is not None else get_shape(shape_id)
-    full = build_cell(arch, shape_id, device="meta", grad_accum=grad_accum,
-                      cfg=cfg, shape=shape)
+    where = "meta" if mesh is None else mesh
+
+    def cell(c):
+        return build_cell(arch, shape_id, where, grad_accum=grad_accum,
+                          cfg=c, shape=shape)
+
+    full = cell(cfg)
     rec = {"state_bytes": tree_bytes(*full.args)}
+    if mesh is not None:
+        rec["state_bytes_per_card"] = tree_bytes(*local_tensors(*full.args))
     if full.accum is not None:
         rec["grad_accum"] = full.accum
     p, d = layer_period(cfg), cfg.n_layers
@@ -175,47 +148,26 @@ def analyze_cell(arch: str, shape_id: str, cfg: Optional[ArchConfig] = None,
         return rec
     del full
     a, b = (analyze_step(c.step_fn, *c.args) for c in (
-        build_cell(arch, shape_id, device="meta", grad_accum=grad_accum,
-                   cfg=at_depth(cfg, n), shape=shape) for n in (lo, lo + p)))
+        cell(at_depth(cfg, n)) for n in (lo, lo + p)))
     periods = (d - lo) // p
     rec.update({k: a[k] + periods * (b[k] - a[k]) for k in _ADDITIVE})
+    rec["per_collective"] = {
+        k: a["per_collective"].get(k, 0.0) + periods * (
+            b["per_collective"].get(k, 0.0) - a["per_collective"].get(k, 0.0))
+        for k in {**a["per_collective"], **b["per_collective"]}}
     rec["analyzed_depths"] = [lo, lo + p]
     return rec
 
 
-def run_mesh_cell(arch: str, shape: str, mesh_name: str,
-                  smoke: bool = False) -> dict:
-    """The per-card state of a cell on a four-card mesh (no analysis)."""
-    rec = {"arch": arch, "shape": shape, "mesh": mesh_name, "chips": 4}
-    ok, why = cell_supported(arch, shape)
-    if not ok:
-        rec.update(status="skipped", reason=why)
-        return rec
-    try:
-        cfg = get_config(arch).smoke() if smoke else None
-        sc = smoke_shape(get_shape(shape)) if smoke else None
-        cell = build_cell(arch, shape, device="meta", cfg=cfg, shape=sc)
-        per_card = mesh_state_bytes(cell, host_mesh(MESHES[mesh_name]))
-        rec.update(status="ok", state_bytes=tree_bytes(*cell.args),
-                   state_bytes_per_card=per_card,
-                   fits_mesh=per_card <= CARD_BYTES)
-        if smoke:
-            rec["smoke"] = True
-        print(f"[{arch} × {shape} × {mesh_name}] state "
-              f"{rec['state_bytes'] / 1e9:.2f} GB, per card "
-              f"{per_card / 1e9:.2f} GB (fits: {rec['fits_mesh']})",
-              flush=True)
-    except Exception as e:  # noqa: BLE001 — a failed cell is a record
-        rec.update(status="error", error=f"{type(e).__name__}: {e}",
-                   traceback=traceback.format_exc()[-2000:])
-        print(f"[{arch} × {shape} × {mesh_name}] FAILED: {rec['error']}",
-              flush=True)
-    return rec
-
-
-def run_cell(arch: str, shape: str, grad_accum=None,
-             smoke: bool = False) -> dict:
-    rec = {"arch": arch, "shape": shape, "mesh": MESH, "chips": 1}
+def run_cell(arch: str, shape: str, grad_accum=None, smoke: bool = False,
+             mesh_name: str = MESH, sp: bool = False) -> dict:
+    """The record of one cell: analysed on one card (``mesh_name``
+    ``1xH100``) or per card on a four-card mesh (``1x4`` / ``2x2``);
+    ``sp``: with ``seq_shard_activations``."""
+    chips = 1 if mesh_name == MESH else 4
+    rec = {"arch": arch + ("+sp" if sp else ""), "shape": shape,
+           "mesh": mesh_name, "chips": chips}
+    tag = f"[{rec['arch']} × {shape} × {mesh_name}]"
     ok, why = cell_supported(arch, shape)
     if not ok:
         rec["status"] = "skipped"
@@ -223,28 +175,40 @@ def run_cell(arch: str, shape: str, grad_accum=None,
         return rec
     try:
         t0 = time.time()
-        cfg = get_config(arch).smoke() if smoke else None
+        cfg = get_config(arch).smoke() if smoke else get_config(arch)
+        if sp:
+            cfg = dataclasses.replace(cfg, seq_shard_activations=True)
         sc = smoke_shape(get_shape(shape)) if smoke else None
-        rec.update(analyze_cell(arch, shape, cfg=cfg, shape=sc,
-                                grad_accum=grad_accum))
+        if mesh_name == MESH:
+            rec.update(analyze_cell(arch, shape, cfg=cfg, shape=sc,
+                                    grad_accum=grad_accum))
+            rec["fits_one_card"] = rec["state_bytes"] <= CARD_BYTES
+        else:
+            with abstract_world(MESHES[mesh_name]) as mesh:
+                rec.update(analyze_cell(arch, shape, cfg=cfg, shape=sc,
+                                        grad_accum=grad_accum, mesh=mesh))
+            rec["fits_mesh"] = rec["state_bytes_per_card"] <= CARD_BYTES
         rec["status"] = "ok"
         rec["analyze_s"] = round(time.time() - t0, 1)
-        rec["fits_one_card"] = rec["state_bytes"] <= CARD_BYTES
         if smoke:
             rec["smoke"] = True
-        print(f"[{arch} × {shape} × {MESH}] analysed in {rec['analyze_s']}s: "
+        fits = (f"(fits one card: {rec['fits_one_card']})"
+                if chips == 1 else
+                f"per card {rec['state_bytes_per_card'] / 1e9:.2f} GB "
+                f"(fits: {rec['fits_mesh']})")
+        print(f"{tag} analysed in {rec['analyze_s']}s: "
               f"flops/device={rec['flops_per_device']:.3e} "
               f"hbm_bytes/device={rec['hbm_bytes_per_device']:.3e} "
-              f"state={rec['state_bytes'] / 1e9:.2f} GB "
-              f"(fits one card: {rec['fits_one_card']}) "
+              f"collective_bytes/device="
+              f"{rec['collective_bytes_per_device']:.3e} "
+              f"state={rec['state_bytes'] / 1e9:.2f} GB {fits} "
               f"peak={rec['peak_bytes_per_device'] / 1e9:.2f} GB",
               flush=True)
     except Exception as e:  # noqa: BLE001 — a failed cell is a record
         rec["status"] = "error"
         rec["error"] = f"{type(e).__name__}: {e}"
         rec["traceback"] = traceback.format_exc()[-2000:]
-        print(f"[{arch} × {shape} × {MESH}] FAILED: {rec['error']}",
-              flush=True)
+        print(f"{tag} FAILED: {rec['error']}", flush=True)
     return rec
 
 
@@ -261,19 +225,19 @@ def main(argv=None) -> int:
                          "by SMOKE_DIVISOR: a quick check of every cell")
     ap.add_argument("--mesh", default=MESH, choices=[MESH, *MESHES],
                     help="1xH100 (default): the step analysis on one card; "
-                         "1x4 / 2x2: the per-card state on four")
+                         "1x4 / 2x2: per card on a (data, model) mesh of "
+                         "four")
+    ap.add_argument("--sp", action="store_true",
+                    help="sequence-parallel residual stream variant "
+                         "(records tagged arch+sp)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch and not args.all else list(ARCH_IDS)
     shapes = [args.shape] if args.shape and not args.all else list(SHAPES)
-    if args.mesh == MESH:
-        records = [run_cell(arch, shape, grad_accum=args.grad_accum,
-                            smoke=args.smoke)
-                   for arch in archs for shape in shapes]
-    else:
-        records = [run_mesh_cell(arch, shape, args.mesh, smoke=args.smoke)
-                   for arch in archs for shape in shapes]
+    records = [run_cell(arch, shape, grad_accum=args.grad_accum,
+                        smoke=args.smoke, mesh_name=args.mesh, sp=args.sp)
+               for arch in archs for shape in shapes]
     out = Path(args.out) if args.out else RESULTS / "torch_dryrun.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     existing = []

@@ -17,12 +17,18 @@ on an in-memory store.  It raises when the backend cannot start.
 Usage, on every rank of a world:
   torchrun --nproc-per-node 4 -m repro_torch.launch.cells --mesh 1x4 ...
   mesh = make_host_mesh(model=2, data=2)        # after init_distributed
+
+:func:`abstract_world` stands in for a world of cards in one process, to
+analyse a step on a mesh without the cards (``launch.dryrun --mesh``):
+  with abstract_world((2, 2)) as mesh:     # rank 0 of a (data, model) mesh
+      cell = build_cell(arch, shape, mesh)  # meta DTensor args
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -109,3 +115,38 @@ def make_host_mesh(model: int = 2, data: int = 2, pod: int = 1):
     if pod > 1:
         return make_mesh((pod, data, model), ("pod", "data", "model"))
     return make_mesh((data, model), ("data", "model"))
+
+
+@contextlib.contextmanager
+def abstract_world(shape) -> Iterator:
+    """Rank 0 of a world of ``data * model`` ranks in this process, with
+    no devices and no peers: a ``"fake"`` process group, whose
+    collectives send nothing and return their result's shape (the
+    contents are not the collective's).  Yields the ``(data, model)``
+    ``DeviceMesh`` of ``shape`` over it; the world is closed after.
+
+    The mesh is ``"cuda"``-typed, so that DTensor picks the collectives
+    it runs under NCCL on the cards (on a ``"cpu"`` mesh it takes gloo's
+    fallbacks); no card is touched, and a model on it is built on
+    ``meta`` (``sharding.axes.mesh_device``).  Refuses to start while a
+    process group is initialised: it would replace that world."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if dist.is_initialized():
+        raise RuntimeError("abstract_world: a process group is already "
+                           "initialised in this process")
+    # registers the "fake" backend (torch keeps it with its test helpers)
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+
+    class NullStore(dist.Store):
+        """A store that holds nothing: the fake group reads none."""
+
+    shape = tuple(int(v) for v in shape)
+    dist.init_process_group("fake", rank=0, world_size=shape[0] * shape[1],
+                            store=NullStore())
+    try:
+        yield init_device_mesh("cuda", shape,
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()

@@ -1,17 +1,21 @@
-"""Roofline terms from the single-card dry run, for one NVIDIA H100 SXM.
+"""Roofline terms from the dry run, for NVIDIA H100 SXMs.
 
 Hardware model: NVIDIA's data sheet for the H100 SXM, dense rates at the
-full 700 W power limit — 989 TFLOP/s bf16 on the tensor cores and
-3.35 TB/s of HBM3 (the constants of ``PERF.md``'s kernel table).  One
-card has no interconnect term.
+full 700 W power limit — 989 TFLOP/s bf16 on the tensor cores, 3.35 TB/s
+of HBM3 (the constants of ``PERF.md``'s kernel table) and NVLink 4 at
+900 GB/s a card, both directions together: 450 GB/s for what a card
+sends.
 
-For each (arch × shape) record of ``results/torch_dryrun.json``
+For each (arch × shape × mesh) record of ``results/torch_dryrun.json``
 (``python -m repro_torch.launch.dryrun``):
-  T_comp = FLOPs / peak          [matrix-product FLOPs of the step]
-  T_mem  = HBM bytes / HBM bw     [Σ operands + results of its kernels]
+  T_comp = FLOPs / peak            [matrix-product FLOPs of the step]
+  T_mem  = HBM bytes / HBM bw       [Σ operands + results of its kernels]
+  T_coll = collective bytes / link  [a rank's wire bytes; --mesh rows]
 plus MODEL_FLOPS = 6·N·D (active N for MoE; prefill 2·N·D; decode D =
-one token a sequence), the usefulness ratio MODEL_FLOPS / counted FLOPs
-and the MFU upper bound MODEL_FLOPS / (peak · max(T_comp, T_mem)).
+one token a sequence), the usefulness ratio MODEL_FLOPS / (chips ·
+counted FLOPs) and the MFU upper bound MODEL_FLOPS / (chips · peak ·
+the bound), the bound being the largest of the terms.  One card has no
+interconnect term: its rows carry no ``t_coll_s``.
 
 Caveats, as the reference's:
   * the HBM term is an upper-bound proxy: it counts what every operation
@@ -19,7 +23,11 @@ Caveats, as the reference's:
   * the peak assumes bf16 tensor-core work; the steps' f32 element-wise
     work and reductions run slower, so T_comp is optimistic;
   * the counts are the plain attention's (every score pair), as the
-    reference's HLO counts them, not the flash kernel's skipped tiles.
+    reference's HLO counts them, not the flash kernel's skipped tiles;
+  * the link term takes every collective at the one-direction NVLink
+    rate, all four cards sending at once; it adds no latency a
+    collective, and the terms are not summed (no overlap is assumed or
+    ruled out).
 These are data-sheet constants over counted work, not measurements.
 """
 
@@ -31,6 +39,7 @@ from typing import Dict, List, Optional
 
 PEAK_FLOPS = 989e12     # bf16 dense, tensor cores
 HBM_BW = 3.35e12        # B/s
+LINK_BW = 450e9         # B/s: NVLink 4, one direction per card
 
 RESULTS = Path(__file__).resolve().parents[3] / "results"
 
@@ -50,19 +59,27 @@ def model_flops(cfg, shape) -> float:
 
 def roofline_row(rec: Dict, cfg=None, shape=None) -> Dict:
     chips = rec["chips"]
-    t_comp = rec["flops_per_device"] / PEAK_FLOPS
-    t_mem = rec["hbm_bytes_per_device"] / HBM_BW
-    bound = max(t_comp, t_mem)
+    terms = {"compute": rec["flops_per_device"] / PEAK_FLOPS,
+             "memory": rec["hbm_bytes_per_device"] / HBM_BW}
+    if chips > 1:
+        terms["collective"] = rec["collective_bytes_per_device"] / LINK_BW
+    dominant = max(terms, key=terms.get)
+    bound = terms[dominant]
     out = {
         "arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
-        "t_comp_s": t_comp, "t_mem_s": t_mem,
-        "dominant": "compute" if t_comp >= t_mem else "memory",
+        "t_comp_s": terms["compute"], "t_mem_s": terms["memory"],
+        "dominant": dominant,
         "bound_time_s": bound,
-        "roofline_fraction": t_comp / max(bound, 1e-30),
+        "roofline_fraction": terms["compute"] / max(bound, 1e-30),
         "state_gb": rec.get("state_bytes", 0) / 1e9,
         "peak_gb": rec.get("peak_bytes_per_device", 0) / 1e9,
-        "fits_one_card": rec.get("fits_one_card"),
     }
+    if chips > 1:
+        out.update(t_coll_s=terms["collective"],
+                   state_gb_per_card=rec["state_bytes_per_card"] / 1e9,
+                   fits_mesh=rec["fits_mesh"])
+    else:
+        out["fits_one_card"] = rec.get("fits_one_card")
     if cfg is not None and shape is not None:
         mf = model_flops(cfg, shape)
         out["model_flops"] = mf
@@ -78,8 +95,6 @@ def build_table(dryrun_json: Optional[Path] = None) -> List[Dict]:
     path = dryrun_json or (RESULTS / "torch_dryrun.json")
     rows = []
     for rec in json.loads(Path(path).read_text()):
-        if rec["mesh"] != "1xH100":
-            continue    # a --mesh record carries per-card state, no counts
         if rec.get("status") != "ok":
             rows.append({
                 "arch": rec["arch"], "shape": rec["shape"],
@@ -87,7 +102,9 @@ def build_table(dryrun_json: Optional[Path] = None) -> List[Dict]:
                 "reason": rec.get("reason", rec.get("error", ""))[:90],
             })
             continue
-        cfg, shape = get_config(rec["arch"]), get_shape(rec["shape"])
+        # variants: "arch+sp"
+        cfg = get_config(rec["arch"].split("+")[0])
+        shape = get_shape(rec["shape"])
         if rec.get("smoke"):
             cfg, shape = cfg.smoke(), smoke_shape(shape)
         row = roofline_row(rec, cfg, shape)
@@ -98,20 +115,24 @@ def build_table(dryrun_json: Optional[Path] = None) -> List[Dict]:
 
 def format_table(rows: List[Dict]) -> str:
     hdr = (f"{'arch':24}{'shape':13}{'mesh':8}{'T_comp':>10}{'T_mem':>10}"
-           f"{'bound':>9}{'MFU_ub':>8}{'useful':>8}{'state_GB':>10}"
-           f"{'peak_GB':>9}{'fits':>6}")
+           f"{'T_coll':>10}{'bound':>11}{'MFU_ub':>8}{'useful':>8}"
+           f"{'state_GB':>10}{'peak_GB':>9}{'fits':>6}")
     lines = [hdr, "-" * len(hdr)]
     for r in rows:
         if r.get("status") != "ok":
             lines.append(f"{r['arch']:24}{r['shape']:13}{r['mesh']:8}"
                          f"  [{r['status']}] {r.get('reason', '')}")
             continue
+        mesh = "t_coll_s" in r
+        fits = r["fits_mesh"] if mesh else r["fits_one_card"]
         lines.append(
             f"{r['arch']:24}{r['shape']:13}{r['mesh']:8}"
-            f"{r['t_comp_s']:10.4f}{r['t_mem_s']:10.4f}{r['dominant']:>9}"
-            f"{r.get('mfu_upper_bound', 0):8.3f}"
-            f"{r.get('useful_ratio', 0):8.3f}{r['state_gb']:10.1f}"
-            f"{r['peak_gb']:9.1f}{'yes' if r['fits_one_card'] else 'no':>6}")
+            f"{r['t_comp_s']:10.4f}{r['t_mem_s']:10.4f}"
+            + (f"{r['t_coll_s']:10.4f}" if mesh else f"{'-':>10}")
+            + f"{r['dominant']:>11}{r.get('mfu_upper_bound', 0):8.3f}"
+            f"{r.get('useful_ratio', 0):8.3f}"
+            f"{r['state_gb_per_card' if mesh else 'state_gb']:10.1f}"
+            f"{r['peak_gb']:9.1f}{'yes' if fits else 'no':>6}")
     return "\n".join(lines)
 
 

@@ -19,8 +19,24 @@ size.  The counts follow the reference's definitions:
   ``slice``, ``detach``, ...) and metadata reads are free.  It is the
   counterpart of the reference's "top-level kernels" proxy: an upper
   bound in the same sense (a fused kernel would read and write less).
-* Collective bytes: 0 on one card.  The key stays so that records keep
-  the reference's schema.
+* Collective bytes: the wire bytes a rank sends for each functional
+  collective it dispatches (``torch.distributed``'s ``_c10d_functional``
+  ops, which the mesh path's ``Local`` collectives and DTensor's
+  redistributions both lower to), by the reference's formulas
+  (``hlo_analysis.py``), over a group of ``g`` ranks and a result of
+  ``size`` bytes: all-reduce ``2 · size · (g - 1) / g``, reduce-scatter
+  ``size · (g - 1)``, all-gather and all-to-all ``size · (g - 1) / g``;
+  totalled in ``collective_bytes_per_device`` and by kind in
+  ``per_collective`` under the reference's names.  Waits are free; a
+  group of one sends nothing; 0 on one card.
+
+On a mesh (a cell built by ``build_cell(arch, shape, mesh)`` in
+``launch.mesh.abstract_world``) the arguments are DTensors of ``meta``
+blocks.  An operation on DTensors is not counted itself: the counter
+defers it to DTensor, and counts the local operations and collectives
+DTensor runs for it on this rank's blocks (its sharding propagation,
+which runs on fake tensors, is not counted).  So every count is one
+rank's.
 
 Beyond the reference, :func:`analyze_step` also reports
 ``peak_bytes_per_device``: the step's arguments plus the largest total of
@@ -44,9 +60,21 @@ import weakref
 from typing import Any, Callable, Dict, List
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 aten = torch.ops.aten
+
+#: the functional collectives by the reference's names, and each one's
+#: wire bytes from its result's bytes and its group's size
+_WIRE = {
+    "all_reduce": ("all-reduce", lambda n, g: 2.0 * n * (g - 1) / g),
+    "all_gather_into_tensor": ("all-gather", lambda n, g: n * (g - 1) / g),
+    "reduce_scatter_tensor": ("reduce-scatter", lambda n, g: n * (g - 1)),
+    "all_to_all_single": ("all-to-all", lambda n, g: n * (g - 1) / g),
+}
+#: functional-collective operations that send nothing
+_NO_WIRE = {"wait_tensor", "_wrap_tensor_autograd"}
 
 #: operations that launch no kernel: aliases and metadata reads (views
 #: are found from their schema)
@@ -67,6 +95,12 @@ def _tensors(tree) -> List[torch.Tensor]:
     return []
 
 
+def local_tensors(*trees) -> List[torch.Tensor]:
+    """The tensors of ``trees``, a DTensor as this rank's local block."""
+    return [t.to_local() if hasattr(t, "to_local") else t
+            for t in _tensors(list(trees))]
+
+
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
@@ -83,15 +117,25 @@ def _matmul_flops(func, args, out) -> float:
     return 2.0 * out.numel() * a.shape[-1]
 
 
+def _group_size(args) -> int:
+    """The size of the group a functional collective runs over (its
+    last argument names the group)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    return _resolve_process_group(args[-1]).size()
+
+
 class StepCounter(TorchDispatchMode):
-    """Counts FLOPs, bytes and live bytes of the operations dispatched on
-    ``device`` while it is active."""
+    """Counts FLOPs, bytes, collective bytes and live bytes of the
+    operations dispatched on ``device`` while it is active."""
 
     def __init__(self, device: torch.device, live_bytes: int = 0):
         super().__init__()
         self.device = device
         self.flops = 0.0
         self.hbm_bytes = 0.0
+        self.collective_bytes = 0.0
+        self.per_collective: Dict[str, float] = {}
         self.ops = 0
         self.live = live_bytes
         self.peak = live_bytes
@@ -100,8 +144,15 @@ class StepCounter(TorchDispatchMode):
         self.live -= nbytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            # DTensor runs it on the local blocks, through this mode
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if any(issubclass(t, FakeTensor) for t in types):
+            return out      # DTensor's sharding propagation: no kernel
         kind = _kind(func)
         if kind == "free":
             return out
@@ -112,6 +163,8 @@ class StepCounter(TorchDispatchMode):
         self.ops += 1
         self.flops += _matmul_flops(func, args, out)
         self.hbm_bytes += sum(_nbytes(t) for t in ins + outs)
+        if func.namespace == "_c10d_functional":
+            self._collective(func, args, outs)
         if kind == "allocates":
             for t in outs:
                 n = _nbytes(t)
@@ -119,6 +172,17 @@ class StepCounter(TorchDispatchMode):
                 weakref.finalize(t, self._free, n)
             self.peak = max(self.peak, self.live)
         return out
+
+    def _collective(self, func, args, outs) -> None:
+        name = func.overloadpacket.__name__.removesuffix("_coalesced")
+        if name not in _WIRE:
+            raise NotImplementedError(f"StepCounter: no wire-byte rule "
+                                      f"for {func}")
+        kind, wire = _WIRE[name]
+        g = _group_size(args)
+        sent = sum(wire(_nbytes(t), g) for t in outs) if g > 1 else 0.0
+        self.collective_bytes += sent
+        self.per_collective[kind] = self.per_collective.get(kind, 0.0) + sent
 
 
 _KINDS: Dict[Any, str] = {}
@@ -129,7 +193,9 @@ def _kind(func) -> str:
     into an argument) or ``allocates`` (new outputs)."""
     kind = _KINDS.get(func)
     if kind is None:
-        if func in _FREE or func.is_view:
+        if func in _FREE or func.is_view or (
+                func.namespace == "_c10d_functional"
+                and func.overloadpacket.__name__ in _NO_WIRE):
             kind = "free"
         elif any(r.alias_info is not None and r.alias_info.is_write
                  for r in func._schema.returns):
@@ -156,16 +222,18 @@ def tree_bytes(*trees) -> int:
     return total
 
 
-def analyze_step(fn: Callable, *args: Any) -> Dict[str, float]:
+def analyze_step(fn: Callable, *args: Any) -> Dict[str, Any]:
     """Run ``fn(*args)`` once under :class:`StepCounter` and return the
     reference's per-device keys (``flops_per_device``,
-    ``hbm_bytes_per_device``, ``collective_bytes_per_device``) plus
-    ``peak_bytes_per_device`` and the number of counted operations.
+    ``hbm_bytes_per_device``, ``collective_bytes_per_device``,
+    ``per_collective``) plus ``peak_bytes_per_device`` and the number of
+    counted operations.
 
     ``args`` are normally ``meta`` tensors (a ``Cell`` built with
-    ``device="meta"``); the counts are taken on the device of the first
-    tensor in them that is not on the CPU (the CPU when all are)."""
-    tensors = _tensors(list(args))
+    ``device="meta"``, or on a mesh in an abstract world); the counts are
+    taken on the device of the first tensor in them (a DTensor's local
+    block) that is not on the CPU (the CPU when all are)."""
+    tensors = local_tensors(*args)
     if not tensors:
         raise ValueError("analyze_step: no tensor among the arguments")
     device = next((t.device for t in tensors if t.device.type != "cpu"),
@@ -177,7 +245,8 @@ def analyze_step(fn: Callable, *args: Any) -> Dict[str, float]:
     del result
     return {"flops_per_device": counter.flops,
             "hbm_bytes_per_device": counter.hbm_bytes,
-            "collective_bytes_per_device": 0.0,
+            "collective_bytes_per_device": counter.collective_bytes,
+            "per_collective": counter.per_collective,
             "peak_bytes_per_device": counter.peak,
             "counted_ops": counter.ops}
 

@@ -141,8 +141,18 @@ def reset_ep_drops() -> None:
 
 
 def _count_drops(n: torch.Tensor) -> None:
+    if n.device.type == "meta":
+        return      # an analysed step (launch.step_analysis): no count
     key = str(n.device)
     _DROPS[key] = _DROPS[key] + n if key in _DROPS else n
+
+
+def expert_counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=n)`` for ids in ``[0, n)``, by a
+    scatter-add: bincount has no ``meta`` kernel, so a step that calls it
+    cannot be analysed (``launch.step_analysis``)."""
+    return torch.zeros(n, dtype=torch.int64, device=ids.device) \
+        .scatter_add_(0, ids, torch.ones_like(ids))
 
 
 def _local_dispatch_combine(x, router, w_gate, w_up, w_down, *, cfg,
@@ -176,7 +186,7 @@ def _local_dispatch_combine(x, router, w_gate, w_up, w_down, *, cfg,
     w_flat = vals.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
     e_s, t_s, w_s = e_flat[order], t_flat[order], w_flat[order]
-    counts = torch.bincount(e_flat, minlength=X)
+    counts = expert_counts(e_flat, X)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=x.device) - starts[e_s]
     C = int(max(1, -(-T * k // X) * cfg.capacity_factor))

@@ -94,19 +94,18 @@ def global_norm(grads) -> torch.Tensor:
     leaves = tree_leaves(grads)
     mesh = next((g.device_mesh for g in leaves if isinstance(g, DTensor)),
                 None)
-    if mesh is None:
-        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                              for g in leaves))
-    coord = mesh.get_coordinate()
+    coord = None if mesh is None else mesh.get_coordinate()
     total = None
     for g in leaves:
         sq = torch.sum(torch.square(_local(g).float()))
-        if any(isinstance(p, Replicate) and coord[d] != 0
-               for d, p in enumerate(g.placements)):
+        if mesh is not None and any(
+                isinstance(p, Replicate) and coord[d] != 0
+                for d, p in enumerate(g.placements)):
             sq = torch.zeros_like(sq)
         total = sq if total is None else total + sq
-    total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
-                               run_check=False).full_tensor()
+    if mesh is not None:
+        total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                                   run_check=False).full_tensor()
     return torch.sqrt(total)
 
 

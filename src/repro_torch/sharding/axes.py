@@ -243,7 +243,12 @@ def zeros(shape: Sequence[int], axes: Sequence[Optional[str]], mesh, *,
 
 
 def mesh_device(mesh) -> torch.device:
-    """This rank's device of ``mesh``."""
+    """This rank's device of ``mesh``: ``meta`` in a world of no devices
+    (a ``"fake"`` process group, ``launch.mesh.abstract_world``)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        return torch.device("meta")
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)
@@ -260,14 +265,19 @@ class NamedSharding:
         """The full tensor ``t`` (the same on every rank) as a DTensor on
         this rank's device of the mesh, each rank keeping its block,
         nothing sent: the counterpart of ``jax.device_put(arr,
-        sharding)``."""
+        sharding)``.  A ``meta`` ``t`` gives ``meta`` blocks (the
+        reference's ``ShapeDtypeStruct`` with a sharding)."""
         from torch.distributed.tensor import DTensor
 
-        t = t.to(mesh_device(self.mesh))
+        meta = t.device.type == "meta"
+        if not meta:
+            t = t.to(mesh_device(self.mesh))
         pl = list(self.placements)
-        return DTensor.from_local(local_block(t, pl, self.mesh), self.mesh,
-                                  pl, run_check=False, shape=t.shape,
-                                  stride=t.stride())
+        local = local_block(t, pl, self.mesh)
+        if meta:
+            local = torch.empty_like(local)  # its own block, not a view
+        return DTensor.from_local(local, self.mesh, pl, run_check=False,
+                                  shape=t.shape, stride=t.stride())
 
 
 def spec_of(placements_, mesh, ndim: int) -> Spec:

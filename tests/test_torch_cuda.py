@@ -1000,3 +1000,27 @@ def test_mesh_train_step_on_card_matches_unsharded(cuda):
     for a, b in zip(one, got):
         assert a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
     assert smoke._max_diff(pm, smoke._to_host(p1)) == 0
+
+
+def test_mesh_analysis_phase_on_card(cuda):
+    """Phase 13's child process on a machine with cards: the per-card
+    step analysis of phases 11 and 12's configurations on meta tensors
+    in a fake world, the cards hidden from it; every run analysed, the
+    (1, 1) runs equal to the one-card analysis with no collective bytes
+    (``mesh_analysis_gates`` raises otherwise), and with n >= 2 cards
+    the multi-card meshes send some."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    n = torch.cuda.device_count()
+    recs = smoke.mesh_analysis_child(n)
+    assert len(recs) == 2 + (3 if n >= 2 else 0)
+    assert all(r["status"] == "ok" for r in recs)
+    assert [tuple(r["mesh"]) for r in recs[:2]] == [(1, 1), (1, 1)]
+    for r in recs[2:]:
+        assert r["collective_bytes_per_device"] > 0
+

@@ -197,22 +197,31 @@ def test_shard_activation_is_the_identity_outside_a_mesh():
 
 @pytest.mark.parametrize("kind", ["prefill_32k", "decode_32k", "train_4k"])
 def test_dryrun_per_card_state_splits_the_cell(kind):
-    """``launch.dryrun --mesh``: on (1, 1) a card holds the whole state;
-    on (1, 4) and (2, 2) at least a quarter of it and less than all."""
+    """``launch.dryrun --mesh``: the cell built on a mesh of an abstract
+    world holds the one-card cell's state; on (1, 1) a card holds all of
+    it, on (1, 4) and (2, 2) at least a quarter of it and less than
+    all."""
     from repro_torch.launch import dryrun
-    from repro_torch.launch.step_analysis import tree_bytes
+    from repro_torch.launch.mesh import abstract_world
+    from repro_torch.launch.step_analysis import local_tensors, tree_bytes
 
     cfg = configs.get_config("granite-20b").smoke()
+    shape = _shape("smoke", "decode") if kind == "decode_32k" else \
+        dataclasses.replace(configs.get_shape(kind), seq_len=64,
+                            global_batch=4)
     cell = cells.build_cell("granite-20b", kind, device="meta", cfg=cfg,
-                            shape=_shape("smoke", "decode")
-                            if kind == "decode_32k" else
-                            dataclasses.replace(configs.get_shape(kind),
-                                                seq_len=64, global_batch=4))
+                            shape=shape)
     whole = tree_bytes(*cell.args)
-    assert dryrun.mesh_state_bytes(cell, dryrun.host_mesh((1, 1))) == whole
-    for shape in dryrun.MESHES.values():
-        per_card = dryrun.mesh_state_bytes(cell, dryrun.host_mesh(shape))
-        assert whole / 4 <= per_card < whole
+    for mesh_shape in [(1, 1), *dryrun.MESHES.values()]:
+        with abstract_world(mesh_shape) as mesh:
+            on_mesh = cells.build_cell("granite-20b", kind, mesh, cfg=cfg,
+                                       shape=shape)
+            assert tree_bytes(*on_mesh.args) == whole
+            per_card = tree_bytes(*local_tensors(*on_mesh.args))
+        if mesh_shape == (1, 1):
+            assert per_card == whole
+        else:
+            assert whole / 4 <= per_card < whole
 
 
 def test_host_mesh_falls_back_in_a_small_world():

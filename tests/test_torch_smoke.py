@@ -9,7 +9,11 @@ curation, the trainer and its protocol at granite-20b's smoke config),
 so does its families phase (the six archs of the moe, vlm, ssm, hybrid
 and audio families at their smoke configs, and ``launch.serve``'s
 defaults), so does its cells phase (every cell of the reference's grid
-that it runs, at the smoke configs),
+that it runs, at the smoke configs), so does its mesh analysis phase
+(13: the published configurations of phases 11 and 12 analysed on
+``meta`` in a child process, whose gates refuse a failed run, a (1, 1)
+run unlike the one-card analysis and a multi-card mesh that sends
+nothing),
 its attention bound counts the unmasked pairs, and the script itself
 refuses to run without a CUDA device."""
 
@@ -481,3 +485,65 @@ def test_mesh_train_phase_runs_on_cpu():
     assert c["losses"]["restored_on_mesh"] == c["losses"]["uninterrupted"]
     assert c["unsharded_exact"], c
     assert "multi" not in out
+
+
+def _mesh_analysis_record(mesh, **kw):
+    rec = {"arch": "granite-20b", "layers": 4, "mesh": list(mesh),
+           "status": "ok", "flops_per_device": 2.0,
+           "hbm_bytes_per_device": 3.0,
+           "collective_bytes_per_device": 0.0 if mesh == (1, 1) else 5.0}
+    if mesh == (1, 1):
+        rec["one_card"] = {"flops_per_device": 2.0,
+                           "hbm_bytes_per_device": 3.0}
+    rec.update(kw)
+    return rec
+
+
+def test_mesh_analysis_phase_runs_on_cpu():
+    """Phase 13's child process here (one card's runs: 12 (a) and 11 on
+    (1, 1)), its gates held, each bound beside the step ms its phase
+    measured (here stand-ins shaped as phases 11 and 12 report them)."""
+    mesh = {"parts": [{"ranks": [{"archs": [
+        {"arch": "gemma3-27b", "own": {"prefill_ms": 70.0}},
+        {"arch": "granite-moe-1b-a400m", "own": {"prefill_ms": 300.0}}]}]}]}
+    mt = {"a": {"mesh_steps": [{"ms": 600.0}, {"ms": 580.0}]}}
+    out = chip_smoke.run_mesh_analysis_phase("cpu", 1, mesh, mt)
+    a, b = out["runs"]
+    assert (a["phase"], a["arch"], a["mesh"]) == ("12 (a)", "granite-20b",
+                                                  [1, 1])
+    assert a["grad_accum"] == chip_smoke.MESH_TRAIN_ACCUM
+    assert (b["phase"], b["arch"], b["batch"]) == (
+        "11", "gemma3-27b", list(chip_smoke.MESH_PREFILL))
+    assert a["measured_ms"] == [580.0] and b["measured_ms"] == [70.0]
+    for r in (a, b):
+        assert r["bound_share"] == r["bound_ms"] / r["measured_ms"][0]
+        assert r["terms_ms"]["collective"] == 0 and r["bound_ms"] > 0
+    assert len(chip_smoke.mesh_analysis_runs(4)) == 5
+
+
+@pytest.mark.parametrize("fault", ["error", "flops", "bytes", "collective",
+                                   "silent mesh"])
+def test_mesh_analysis_gates_refuse(fault):
+    """A run that failed, a (1, 1) run whose FLOPs or bytes are not the
+    one-card analysis's or that sends bytes, a mesh of several cards
+    that sends none: each fails phase 13."""
+    good = [_mesh_analysis_record((1, 1)), _mesh_analysis_record((2, 2))]
+    chip_smoke.mesh_analysis_gates(good)
+    bad = {"error": [_mesh_analysis_record((1, 1), status="error",
+                                           error="boom")],
+           "flops": [_mesh_analysis_record((1, 1), flops_per_device=2.5)],
+           "bytes": [_mesh_analysis_record((1, 1),
+                                           hbm_bytes_per_device=4.0)],
+           "collective": [_mesh_analysis_record(
+               (1, 1), collective_bytes_per_device=1.0)],
+           "silent mesh": [_mesh_analysis_record(
+               (1, 4), collective_bytes_per_device=0.0)]}[fault]
+    with pytest.raises(AssertionError, match="13: granite-20b"):
+        chip_smoke.mesh_analysis_gates(bad)
+
+
+def test_mesh_analysis_refuses_a_failed_child(monkeypatch, tmp_path):
+    """The child process cannot import the script: phase 13 fails."""
+    monkeypatch.setattr(chip_smoke, "ROOT", tmp_path)
+    with pytest.raises(RuntimeError, match="13: the analysis process"):
+        chip_smoke.mesh_analysis_child(1)
