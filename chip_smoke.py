@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--points N]
 
-Phases (1-3, 3b-3e, 4-11), each of which raises on failure (exit code
+Phases (1-3, 3b-3e, 4-14), each of which raises on failure (exit code
 != 0):
 
 1. device  — print the card (``nvidia-smi`` name and power limit, torch's
@@ -327,6 +327,20 @@ Phases (1-3, 3b-3e, 4-11), each of which raises on failure (exit code
              rank's).  On (1, 1) the FLOPs and HBM bytes must equal the
              one-card analysis and the collective bytes 0; every run must
              be analysed.
+14. examples and analysis — ``python -m repro_torch.analysis --json``
+             in a child process: exit 0, 0 findings, all six passes
+             reported (their counts printed).  Then the five
+             ``examples/torch_*.py`` through their ``main`` at their
+             defaults, each one's wall seconds and launches printed:
+             quickstart and streaming with ``--backend soa-device`` on
+             the card and again with ``--device cpu``, every number they
+             print but seconds equal (ARIs, clusters, noise, repair
+             scans), ``lsh_hash_resolve`` and ``bucket_insert_pass``
+             launched at least once per insert batch on the card;
+             curation on ``soa-device`` on the card and the CPU, equal;
+             serve (``mamba2-780m --smoke``, 12 requests) and train
+             (granite-20b smoke at d_model 512, its 300 steps) on the
+             card, train's ``flash_attention`` launches at least 1.
 
 The line before the last is one JSON object with a ``kernels`` list (all
 five kernels and the ``lsh_hash_resolve`` and fused
@@ -339,8 +353,9 @@ launches in 8 (c) and (d) and its check at the trainer's shape, and its
 launches per forward of each arch of phase 9 with its checks at phase
 9's shapes, its launches in each cell of phase 10 with its checks at
 32,768 rows, its launches per rank in phase 11, and its launches per
-rank in phase 12 with its check at the mesh step's local shape); the
-last line is
+rank in phase 12 with its check at the mesh step's local shape; every
+kernel and route its launches in each example of phase 14); the last
+line is
 ``{"ok": true, "device": {...}}``.
 ``--points`` cuts the main, dict and approx streams only (the cut is
 printed);
@@ -6134,6 +6149,206 @@ def print_mesh_analysis_phase(ma: dict) -> None:
 
 
 # ---------------------------------------------------------------------- #
+# examples and analysis (phase 14): the port's static analysis in a child
+# process, then the five examples/torch_*.py through their main(), the
+# clustering ones on the card and again on the CPU
+# ---------------------------------------------------------------------- #
+EXAMPLES = ROOT / "examples"
+ANALYSIS_TIMEOUT_S = 120
+#: the passes ``python -m repro_torch.analysis --json`` must report
+ANALYSIS_PASSES = ("concurrency-guards", "fault-tolerance-guards",
+                   "hot-path-purity", "obs-discipline",
+                   "protocol-exhaustiveness", "registry-conformance")
+#: the clustering examples run on soa-device, and their insert batches
+#: at their defaults (quickstart inserts its 2,000 points at once,
+#: streaming 12,000 in batches of 1,000)
+EXAMPLE_RUNS = (("torch_quickstart", 1), ("torch_streaming_clustering", 12))
+EXAMPLE_BACKEND = "soa-device"
+#: the train example's steps (its default)
+EXAMPLE_TRAIN_STEPS = 300
+EXAMPLES_BUDGET_S = 120
+
+
+def analysis_child(root=None) -> dict:
+    """``python -m repro_torch.analysis --json`` (over ``root``'s package
+    tree when given) in a child process: it must exit 0 with 0 findings
+    and report every pass of :data:`ANALYSIS_PASSES`."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(PKG.parent), env.get("PYTHONPATH")) if p)
+    cmd = [sys.executable, "-m", "repro_torch.analysis", "--json"]
+    if root is not None:
+        cmd += ["--root", str(root)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         cwd=ROOT, timeout=ANALYSIS_TIMEOUT_S)
+    try:
+        report = json.loads(res.stdout)
+    except json.JSONDecodeError:
+        report = None
+    if res.returncode != 0 or report is None or report["n_findings"]:
+        found = "\n".join(f"{f['path']}:{f['line']}: {f['rule']} "
+                          f"{f['message']}" for f in
+                          (report or {}).get("findings", []))
+        raise AssertionError(f"14: python -m repro_torch.analysis exited "
+                             f"{res.returncode}:\n{found}\n"
+                             f"{res.stderr[-3000:]}")
+    if tuple(sorted(report["counts"])) != ANALYSIS_PASSES:
+        raise AssertionError(f"14: the analysis ran {sorted(report['counts'])}"
+                             f", not {list(ANALYSIS_PASSES)}")
+    return {"counts": report["counts"], "n_findings": report["n_findings"],
+            "wall_s": time.perf_counter() - t0}
+
+
+def example_module(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` is not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name,
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name: str, argv: list, **sizes) -> dict:
+    """``examples/<name>.py``'s ``main(argv, **sizes)`` with its printed
+    lines captured, the kernel launches it made and its wall seconds
+    (ended by a synchronise where the card was used)."""
+    import io
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    buf = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        example_module(name).main(list(argv), **sizes)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {"argv": list(argv), "sizes": sizes,
+            "wall_s": time.perf_counter() - t0,
+            "lines": buf.getvalue().splitlines(),
+            "launches": ops.launch_counts(),
+            "entry_launches": ops.entry_launch_counts()}
+
+
+def printed_numbers(lines: list) -> list:
+    """The numbers an example printed, but its seconds (``1.25s``)."""
+    import re
+
+    num = re.compile(r"(?<![\w.])-?\d+(?:\.\d+)?(?!\.?\d*s\b)")
+    return [[float(v) for v in num.findall(ln)] for ln in lines]
+
+
+def same_numbers(a: dict, b: dict, tag: str) -> None:
+    """The two runs printed the same lines, numbers and all, but for
+    their seconds."""
+    got, want = printed_numbers(a["lines"]), printed_numbers(b["lines"])
+    if len(a["lines"]) != len(b["lines"]) or got != want:
+        raise AssertionError(f"14: {tag}: the card printed\n"
+                             + "\n".join(a["lines"]) + "\nthe CPU\n"
+                             + "\n".join(b["lines"]))
+
+
+@contextlib.contextmanager
+def prompt_switches():
+    """A short switch interval while the curation example runs: its
+    pipeline's producer thread runs one batch ahead of the counts it
+    prints, and must not finish a batch in the few statements between
+    the last batch taken and the print."""
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        yield
+    finally:
+        sys.setswitchinterval(old)
+
+
+def run_examples_phase(device: str, card: str, *,
+                       train_steps: int = EXAMPLE_TRAIN_STEPS,
+                       analysis_root=None) -> dict:
+    """Phase 14: the analysis (:func:`analysis_child`), then quickstart
+    and streaming on ``soa-device`` on ``device`` and on the CPU, equal
+    in every number they print but seconds, with ``lsh_hash_resolve``
+    and ``bucket_insert_pass`` launched at least once per insert batch
+    on the card; curation on ``soa-device`` on both, equal; serve and
+    train (``train_steps``) on ``device``, train's flash launches
+    counted.  Everything at the examples' defaults."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"card": card, "analysis": analysis_child(analysis_root),
+           "runs": {}}
+    on_card = device == "cuda"
+    for name, batches in EXAMPLE_RUNS:
+        argv = ["--backend", EXAMPLE_BACKEND]
+        run = run_example(name, argv + ["--device", device])
+        cpu = run_example(name, argv + ["--device", "cpu"])
+        same_numbers(run, cpu, name)
+        run["insert_batches"] = batches
+        run["per_insert_batch"] = {e: run["entry_launches"][e] / batches
+                                   for e in MAIN_ENTRIES}
+        if on_card and min(run["per_insert_batch"].values()) < 1:
+            raise AssertionError(f"14: {name}: launches a batch "
+                                 f"{run['per_insert_batch']}")
+        out["runs"][name] = {"card": run, "cpu": cpu}
+    argv = ["--backend", EXAMPLE_BACKEND]
+    with prompt_switches():
+        run = run_example("torch_curation_pipeline",
+                          argv + ["--device", device])
+        cpu = run_example("torch_curation_pipeline",
+                          argv + ["--device", "cpu"])
+    same_numbers(run, cpu, "torch_curation_pipeline")
+    if on_card and not min(run["entry_launches"][e] for e in MAIN_ENTRIES):
+        raise AssertionError(f"14: torch_curation_pipeline: launches "
+                             f"{run['entry_launches']}")
+    out["runs"]["torch_curation_pipeline"] = {"card": run, "cpu": cpu}
+    out["runs"]["torch_serve_lm"] = {"card": run_example(
+        "torch_serve_lm", ["--device", device])}
+    # the trainer's checkpoints go to the temporary directory
+    with tempfile.TemporaryDirectory() as tmp:
+        old, tempfile.tempdir = tempfile.tempdir, tmp
+        try:
+            run = run_example("torch_train_lm", [
+                "--device", device, "--steps", str(train_steps)])
+        finally:
+            tempfile.tempdir = old
+    if on_card and not run["launches"]["flash_attention"]:
+        raise AssertionError(f"14: torch_train_lm: launches "
+                             f"{run['launches']}")
+    out["runs"]["torch_train_lm"] = {"card": run}
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_examples_phase(ex: dict) -> None:
+    card = ex["card"]
+    a = ex["analysis"]
+    print(f"examples: python -m repro_torch.analysis: {a['n_findings']} "
+          f"finding(s), per pass {json.dumps(a['counts'])}, "
+          f"{a['wall_s']:.1f} s", flush=True)
+    for name, r in ex["runs"].items():
+        run = r["card"]
+        last = run["lines"][-1] if run["lines"] else ""
+        print(f"examples: {name} {' '.join(run['argv'])}: "
+              f"{run['wall_s']:.2f} s"
+              + (f" (CPU {r['cpu']['wall_s']:.2f} s, equal)" if "cpu" in r
+                 else "")
+              + f"; launches {json.dumps(run['launches'])}"
+              + (f", a batch {json.dumps(run['per_insert_batch'])}"
+                 if "per_insert_batch" in run else "")
+              + f"; last line: {last}  [{card}]", flush=True)
+    print(f"examples: phase {ex['wall_s']:.1f} s (budget "
+          f"{EXAMPLES_BUDGET_S} s)  [{card}]", flush=True)
+    print("examples_path " + json.dumps(ex), flush=True)
+
+
+# ---------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--points", type=int, default=STREAM_POINTS,
@@ -6488,6 +6703,17 @@ def main(argv=None) -> int:
     #     measured steps
     print_mesh_analysis_phase(run_mesh_analysis_phase(card, count, mesh,
                                                       mt))
+
+    mark("phase 14 (examples and analysis)")
+    # 14. python -m repro_torch.analysis, then the five examples/torch_*.py
+    #     (quickstart, streaming and curation on the card and the CPU)
+    ex = run_examples_phase("cuda", card)
+    print_examples_phase(ex)
+    for k in kernels:  # a kernel's launches, or a route's (its entry's)
+        k["examples_launches"] = {
+            name: r["card"]["launches"].get(
+                k["name"], r["card"]["entry_launches"].get(k["name"], 0))
+            for name, r in ex["runs"].items()}
     for k in kernels:
         if k["name"] == "flash_attention":
             k["families_launches"] = {

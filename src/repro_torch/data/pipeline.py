@@ -157,4 +157,16 @@ class Pipeline:
         return self.q.get()
 
     def close(self):
+        """Stop the producer and wait for it: it finishes the batch in
+        hand and exits at its next one; the queue is drained so that a
+        producer blocked on a full queue wakes.  (``repro.data.pipeline``
+        only sets the flag, and its producer keeps running the filter,
+        on the card for a device backend, until the queue is full.)"""
         self._stop.set()
+        while self._thread.is_alive():
+            try:
+                while True:
+                    self.q.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(0.01)

@@ -107,6 +107,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: {p.route} route's grid y "
                          f"{grid_y} > {_MAX_GRID_Y} (b * hq for simt, query "
                          "tiles for wgmma)")
+    # analysis: allow[HOT001] five host ints, checked before the launch
     for name, val in (("window", window or 0), ("q_offset", q_offset),
                       ("sq", sq), ("skv", skv), ("b * hq", b * hq)):
         if abs(val) > _I32:
@@ -135,7 +136,8 @@ _BWD_SCORE_BYTES = 1 << 28
 
 
 def attention_vjp(q, k, v, dout, *, causal: bool, window: Optional[int],
-                  q_offset: int, scale: Optional[float], needs=(1, 1, 1)):
+                  q_offset: int, scale: Optional[float],
+                  needs=(True, True, True)):
     """(dq, dk, dv) of :func:`repro_torch.kernels.ref.attention` at (q,
     k, v) against ``dout``, by autograd through it, a chunk of batch rows
     at a time (rows are independent); None where ``needs`` is false."""
@@ -143,15 +145,16 @@ def attention_vjp(q, k, v, dout, *, causal: bool, window: Optional[int],
     per_row = hq * sq * max(k.shape[2], 1) * 4
     step = max(1, _BWD_SCORE_BYTES // max(per_row, 1))
     grads = [[], [], []]
+    # analysis: allow[HOT001] batch rows in chunks bound the scores' memory
     for lo in range(0, b, step):
-        ins = [t[lo:lo + step].detach().requires_grad_(bool(n))
+        ins = [t[lo:lo + step].detach().requires_grad_(n)
                for t, n in zip((q, k, v), needs)]
         with torch.enable_grad():
             out = _ref.attention(*ins, causal=causal, window=window,
                                  q_offset=q_offset, scale=scale)
             want = [t for t in ins if t.requires_grad]
             got = iter(torch.autograd.grad(out, want, dout[lo:lo + step]))
-        for i, t in enumerate(ins):
+        for i, t in enumerate(ins):  # analysis: allow[HOT001] q, k and v
             grads[i].append(next(got) if t.requires_grad else None)
     return tuple(torch.cat(g) if n else None for g, n in zip(grads, needs))
 

@@ -75,12 +75,14 @@ def plan(n: int, d: int, sms: int = H100_SMS) -> EpsPlan:
 def block_range(p: EpsPlan, b) -> Tuple:
     """The tile pairs [p0, p1) block ``b`` (an int or an int64 array)
     walks, as the kernel splits them: equal contiguous ranges."""
+    # analysis: allow[HOT003] the host's model of the kernel's schedule
     b = np.asarray(b, dtype=np.int64)
     return p.pairs * b // p.grid, p.pairs * (b + 1) // p.grid
 
 
 def row_start(i, t: int):
     """Number of the pair (i, i) in the row-major triangle of t tiles."""
+    # analysis: allow[HOT003] the host's model of the kernel's schedule
     i = np.asarray(i, dtype=np.int64)
     return i * t - i * (i - 1) // 2
 
@@ -89,10 +91,12 @@ def pair_of(pn, t: int):
     """The tile pair (I, J), I <= J, numbered ``pn`` (an int64 array)
     in the row-major triangle of ``t`` tiles: the kernel's ``pair_of``,
     a float64 root corrected in int64."""
+    # analysis: allow[HOT003] the host's model of the kernel's schedule
     pn = np.asarray(pn, dtype=np.int64)
     b = 2.0 * t + 1.0
     i = np.floor((b - np.sqrt(b * b - 8.0 * pn.astype(np.float64))) * 0.5)
     i = np.clip(i.astype(np.int64), 0, t - 1)
+    # analysis: allow[HOT001] the host's model of the kernel's schedule
     while True:  # the kernel's correction loops, one step at a time
         dn = (i > 0) & (row_start(i, t) > pn)
         up = (i + 1 < t) & (row_start(i + 1, t) <= pn)

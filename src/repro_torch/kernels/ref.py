@@ -105,7 +105,9 @@ def probe(directory: torch.Tensor, table: torch.Tensor, ka: torch.Tensor,
     found = torch.full_like(pos, -1)
     steps = torch.zeros_like(pos)
     active = torch.arange(pos.numel(), device=pos.device)
-    for _ in range(cap):
+    # one vectorised step of every live probe a round, as many rounds as
+    # the longest probe chain (the plain version of a kernel)
+    for _ in range(cap):  # analysis: allow[HOT001]
         if active.numel() == 0:
             break
         p = pos[active]
@@ -127,7 +129,9 @@ def _insert_absent(directory: torch.Tensor, cells: torch.Tensor) -> None:
     mask = cap - 1
     pos = cells[:, 0].to(torch.int64) & mask
     left = torch.arange(m, device=cells.device)
-    for _ in range(cap + m):
+    # one vectorised step of every unplaced cell a round, as many rounds
+    # as the longest probe chain (the plain version of a kernel)
+    for _ in range(cap + m):  # analysis: allow[HOT001]
         if left.numel() == 0:
             return
         p = pos[left]
@@ -264,6 +268,7 @@ def eps_threshold(eps: float) -> float:
     """``float32(eps*eps + 1e-6)``: the sum taken in Python double and
     rounded to f32 once, as JAX's weak-typed scalar does in
     ``repro.kernels.ref`` and the Pallas kernel."""
+    # analysis: allow[HOT002] eps is a Python float: no tensor is read
     return float(np.float32(eps * eps + 1e-6))
 
 
@@ -280,13 +285,16 @@ def eps_neighbor_counts(x: torch.Tensor, eps: float) -> torch.Tensor:
     n, d = x.shape
     thr = eps_threshold(eps)
     s = torch.zeros(n, dtype=torch.float32, device=x.device)
+    # analysis: allow[HOT001] the fixed order of the sums over k (above)
     for k in range(d):
         s = s + x[:, k] * x[:, k]
     out = torch.empty(n, dtype=torch.int32, device=x.device)
     rows = max(1, _EPS_BLOCK_BYTES // (4 * max(n, 1)))
+    # analysis: allow[HOT001] row blocks bound the (rows, n) temporaries
     for r0 in range(0, n, rows):
         r1 = min(r0 + rows, n)
         dot = torch.zeros((r1 - r0, n), dtype=torch.float32, device=x.device)
+        # analysis: allow[HOT001] the fixed order of the sums over k
         for k in range(d):
             dot.add_(x[r0:r1, k, None] * x[None, :, k])
         d2 = (s[r0:r1, None] + s[None, :]) - 2.0 * dot

@@ -6,7 +6,10 @@ the CPU, ``sharded`` over ``soa-device`` shards on ``cuda`` (in process
 and in worker processes) against the same index on the CPU, the dense
 LM's prefill (through the flash-attention kernel) against its decode,
 and the bf16 prefill of a hybrid and an encoder-decoder model through
-the kernel against the same forward with the plain attention.
+the kernel against the same forward with the plain attention, and
+``chip_smoke.py``'s phase 14 (the analysis and the five
+``examples/torch_*.py``, the clustering ones on the card against the
+CPU).
 Tolerance zero for the integer kernels (for ``eps_neighbor_counts``
 because the kernel and its plain version round every f32 product and
 sum in the same order).  ``flash_attention`` sums
@@ -1024,3 +1027,27 @@ def test_mesh_analysis_phase_on_card(cuda):
     for r in recs[2:]:
         assert r["collective_bytes_per_device"] > 0
 
+
+
+def test_examples_phase_on_card(cuda):
+    """Phase 14 on the card (the trainer cut to 2 steps): the analysis
+    clean, quickstart and streaming on ``soa-device`` equal to their CPU
+    runs with ``lsh_hash_resolve`` and ``bucket_insert_pass`` launched at
+    least once per insert batch, curation equal, serve and train run,
+    train's flash launches counted (the phase raises otherwise)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    ops.ensure_built()
+    ex = smoke.run_examples_phase("cuda", "cuda", train_steps=2)
+    assert ex["analysis"]["n_findings"] == 0
+    for name, batches in smoke.EXAMPLE_RUNS:
+        run = ex["runs"][name]["card"]
+        assert run["insert_batches"] == batches
+        assert min(run["per_insert_batch"].values()) >= 1
+    assert ex["runs"]["torch_train_lm"]["card"]["launches"][
+        "flash_attention"] >= 2

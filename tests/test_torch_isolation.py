@@ -1,5 +1,7 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or the JAX package ``repro`` (checked on
+"""The port stands alone: no module of ``repro_torch`` (its
+``analysis`` package too), no example of the port
+(``examples/torch_*.py``), and not ``chip_smoke.py``, imports JAX or
+the JAX package ``repro`` (checked on
 the source with ``ast``, so a lazy import inside a function counts too),
 no relative import climbs out of ``repro_torch``, and every kernel that
 ``ops`` dispatches to the card has its CUDA source."""
@@ -20,7 +22,17 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _files():
     files = sorted(PKG.rglob("*.py"))
     assert files, PKG
-    return files + [ROOT / "chip_smoke.py"]
+    return (files + sorted((ROOT / "examples").glob("torch_*.py"))
+            + [ROOT / "chip_smoke.py"])
+
+
+def test_the_list_holds_the_analysis_and_the_examples():
+    files = _files()
+    assert PKG / "analysis" / "registry_pass.py" in files
+    assert {p.name for p in files if p.parent == ROOT / "examples"} == {
+        f"torch_{n}.py" for n in ("quickstart", "streaming_clustering",
+                                  "curation_pipeline", "serve_lm",
+                                  "train_lm")}
 
 
 def _max_level(path: Path) -> int:

@@ -13,7 +13,11 @@ that it runs, at the smoke configs), so does its mesh analysis phase
 (13: the published configurations of phases 11 and 12 analysed on
 ``meta`` in a child process, whose gates refuse a failed run, a (1, 1)
 run unlike the one-card analysis and a multi-card mesh that sends
-nothing),
+nothing), so does its examples phase (14: ``python -m
+repro_torch.analysis`` in a child process, then the five
+``examples/torch_*.py``, the clustering ones twice on the CPU here,
+whose gates refuse a finding and a card run that prints other numbers
+than the CPU run),
 its attention bound counts the unmasked pairs, and the script itself
 refuses to run without a CUDA device."""
 
@@ -547,3 +551,78 @@ def test_mesh_analysis_refuses_a_failed_child(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "ROOT", tmp_path)
     with pytest.raises(RuntimeError, match="13: the analysis process"):
         chip_smoke.mesh_analysis_child(1)
+
+
+def test_examples_phase_runs_on_cpu():
+    """Phase 14 with ``--device cpu`` (the trainer cut to 2 steps): the
+    analysis clean over all six passes, every example run, the
+    clustering ones equal between their two runs; no launch on the CPU,
+    so the launch gates, which hold on the card, are not asked."""
+    ex = chip_smoke.run_examples_phase("cpu", "cpu", train_steps=2)
+    a = ex["analysis"]
+    assert a["n_findings"] == 0
+    assert tuple(sorted(a["counts"])) == chip_smoke.ANALYSIS_PASSES
+    assert list(ex["runs"]) == ["torch_quickstart",
+                                "torch_streaming_clustering",
+                                "torch_curation_pipeline", "torch_serve_lm",
+                                "torch_train_lm"]
+    q = ex["runs"]["torch_quickstart"]
+    assert q["card"]["lines"] == q["cpu"]["lines"]
+    assert q["card"]["lines"][0] == "backend: soa-device"
+    s = ex["runs"]["torch_streaming_clustering"]["card"]
+    assert len(s["lines"]) == 12 + 2 and s["insert_batches"] == 12
+    assert s["lines"][-1] == "post-expiry ARI: 1.0"
+    c = ex["runs"]["torch_curation_pipeline"]
+    assert c["card"]["lines"] == c["cpu"]["lines"]
+    assert ex["runs"]["torch_serve_lm"]["card"]["lines"][0].startswith(
+        "served 12 requests")
+    t = ex["runs"]["torch_train_lm"]["card"]
+    assert t["argv"] == ["--device", "cpu", "--steps", "2"]
+    assert t["lines"][-1].startswith("final loss")
+    for r in ex["runs"].values():
+        assert not any(r["card"]["launches"].values())
+    assert ex["wall_s"] > 0
+
+
+def test_examples_phase_refuses_a_finding(tmp_path, monkeypatch):
+    """The analysis child finds a host sync in a kernel wrapper of the
+    tree it is pointed at: phase 14 fails before any example runs (here
+    with no PYTHONPATH set, as the script runs on the card)."""
+    monkeypatch.delenv("PYTHONPATH", raising=False)
+    bad = tmp_path / "repro_torch" / "kernels" / "wrap.py"
+    bad.parent.mkdir(parents=True)
+    bad.write_text("def wrapper(x):\n    return x.sum().item()\n")
+    with pytest.raises(AssertionError, match=r"(?s)14: python -m "
+                       r"repro_torch.analysis exited 1.*HOT002"):
+        chip_smoke.run_examples_phase("cpu", "cpu", train_steps=2,
+                                      analysis_root=tmp_path)
+
+
+def test_examples_phase_refuses_unequal_numbers(monkeypatch):
+    """A card run whose printed ARI differs from the CPU run's fails
+    phase 14; a difference in seconds alone does not."""
+    line = "n={:6d}  soa-device ARI={} ({:5.2f}s cum)   emz-static " \
+           "ARI=1.000 ( 0.02s cum)"
+    run = {"lines": [line.format(1000, "1.000", 1.25)]}
+    chip_smoke.same_numbers(run, {"lines": [line.format(1000, "1.000",
+                                                        3.5)]}, "t")
+    with pytest.raises(AssertionError, match="14: t"):
+        chip_smoke.same_numbers(run, {"lines": [line.format(1000, "0.998",
+                                                            1.25)]}, "t")
+    real, calls = chip_smoke.run_example, []
+
+    def doctored(name, argv, **sizes):
+        """The phase's second run of an example (its CPU run) prints
+        another ARI."""
+        out = real(name, argv, **sizes)
+        calls.append(name)
+        if calls.count(name) == 2:
+            out["lines"] = [ln.replace("ARI vs ground truth: 1.0",
+                                       "ARI vs ground truth: 0.9981")
+                            for ln in out["lines"]]
+        return out
+
+    monkeypatch.setattr(chip_smoke, "analysis_child", lambda root: {})
+    monkeypatch.setattr(chip_smoke, "run_example", doctored)
+    with pytest.raises(AssertionError, match="14: torch_quickstart"):
+        chip_smoke.run_examples_phase("cpu", "cpu", train_steps=2)
