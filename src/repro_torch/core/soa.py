@@ -1278,7 +1278,8 @@ class SoADynamicDBSCAN:
         self._comp = comp
         self.n_epoch_rebuilds += 1
         if self.obs.enabled:
-            self.obs.histogram("engine.cc_edges").observe(len(a))
+            # the rebuild's work, which grows with the window, not the batch
+            self.obs.counter("engine.comp_rebuild_rows").inc(len(core_rows))
         return comp
 
     def get_cluster(self, idx: int):

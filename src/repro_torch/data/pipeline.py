@@ -21,6 +21,17 @@ same keep masks.  The index is built by ``repro_torch.api.build_index``
 on ``device`` (``None``: the backend's default; a device backend such as
 ``soa-device`` runs on "cuda" then, ``device="cpu"`` runs its plain
 kernels), because the device is not a config field in the port.
+
+Both take ``obs`` (default the no-op :data:`~repro_torch.obs.NULL_OBS`).
+``Pipeline`` records ``pipeline.next`` around each wait for a batch
+(attribute ``batch``: the producer's sequence number of the source
+batch).  ``CurationFilter`` records ``curation.filter`` (``batch``, its
+call's number, and ``rows``) with the children ``curation.insert``,
+``curation.delete`` (the window's expiries, ``n``) and
+``curation.labels`` (both ``labels`` calls); the policy is the filter's
+self time.  The filter hands its handle to the window index and its
+engine, so their instruments (``engine.comp_rebuild_rows``) land in the
+same registry.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from ..api import ClusterConfig, NOISE, build_index
+from ..obs import NULL_OBS, Obs
 
 
 class SyntheticTokenStream:
@@ -74,7 +86,8 @@ class CurationFilter:
                  policy: str = "balance", window: int = 50_000,
                  max_per_cluster_frac: float = 0.25, seed: int = 0,
                  backend: str = "batched", shards: int = 1,
-                 transport: str = "local", device: Optional[str] = None):
+                 transport: str = "local", device: Optional[str] = None,
+                 obs: Obs = NULL_OBS):
         # shards > 1 shards the window by LSH key range (backend = inner);
         # transport="process" runs those shards out-of-process
         self.index = build_index(
@@ -83,24 +96,42 @@ class CurationFilter:
                           transport=transport).with_shards(shards),
             device=device,
         )
+        self.obs = obs
+        if obs.enabled:
+            self.index.obs = obs
+            engine = getattr(self.index, "engine", None)
+            if engine is not None:
+                engine.obs = obs
         self.policy = policy
         self.window = window
         self.max_frac = max_per_cluster_frac
         self._fifo: list = []
         self.n_seen = 0
         self.n_kept = 0
+        self.n_calls = 0
 
     def filter(self, embeddings: np.ndarray) -> np.ndarray:
         """Returns a boolean keep-mask for the rows of ``embeddings``."""
         n = embeddings.shape[0]
-        ids = self.index.insert_batch(embeddings)
+        with self.obs.tracer.span("curation.filter", batch=self.n_calls,
+                                  rows=n):
+            self.n_calls += 1
+            return self._filter(embeddings, n)
+
+    def _filter(self, embeddings: np.ndarray, n: int) -> np.ndarray:
+        tracer = self.obs.tracer
+        with tracer.span("curation.insert"):
+            ids = self.index.insert_batch(embeddings)
         self._fifo.extend(ids)
         # expire old points (sliding window -> DeletePoint workload)
-        while len(self._fifo) > self.window:
-            self.index.delete(self._fifo.pop(0))
-        labels = self.index.labels(ids)
+        n_expired = max(0, len(self._fifo) - self.window)
+        with tracer.span("curation.delete", n=n_expired):
+            for _ in range(n_expired):
+                self.index.delete(self._fifo.pop(0))
+        with tracer.span("curation.labels"):
+            labels = self.index.labels(ids)
+            all_labels = self.index.labels()
         sizes: Dict[int, int] = {}
-        all_labels = self.index.labels()
         for v in all_labels.values():
             sizes[v] = sizes.get(v, 0) + 1
         total = max(1, len(all_labels))
@@ -128,16 +159,17 @@ class Pipeline:
     """Prefetching iterator: source -> (curation) -> bounded queue."""
 
     def __init__(self, source, curation: Optional[CurationFilter] = None,
-                 prefetch: int = 4):
+                 prefetch: int = 4, obs: Obs = NULL_OBS):
         self.source = source
         self.curation = curation
+        self.obs = obs
         self.q: "queue.Queue" = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._producer, daemon=True)
         self._thread.start()
 
     def _producer(self):
-        for batch in self.source:
+        for seq, batch in enumerate(self.source):
             if self._stop.is_set():
                 return
             if self.curation is not None:
@@ -148,13 +180,17 @@ class Pipeline:
                 # refill to the fixed batch size by repeating kept rows
                 fill = np.resize(idx, batch["tokens"].shape[0])
                 batch = {k: v[fill] for k, v in batch.items()}
-            self.q.put(batch)
+            self.q.put((seq, batch))
 
     def __iter__(self):
         return self
 
     def __next__(self):
-        return self.q.get()
+        with self.obs.tracer.span("pipeline.next") as sp:
+            seq, batch = self.q.get()
+            if sp is not None:
+                sp.attrs["batch"] = seq
+        return batch
 
     def close(self):
         """Stop the producer and wait for it: it finishes the batch in

@@ -17,6 +17,13 @@ is injected into the message header by the codec, the worker's tracer
 span, and the finished spans travel back as :meth:`Tracer.drain_export`
 summaries that the client :meth:`Tracer.ingest`\\ s.
 
+Both ends of a span are read from ``time.time_ns()``, the clock that
+``torch.profiler``'s events carry, and a span records the OS thread it
+ran on (``tid``, ``threading.get_native_id()``), so the spans of every
+thread can be joined with a device trace by time.  Neither field is
+part of :meth:`Span.export`, whose summaries (µs ``ts`` / ``dur``) stay
+those of ``repro.obs``.
+
 Buffers are bounded: past ``capacity`` finished spans are counted in
 ``dropped`` instead of stored, so tracing a long run degrades to a
 truncated dump, never to unbounded memory.
@@ -28,6 +35,7 @@ import contextlib
 import contextvars
 import itertools
 import os
+import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional
 
@@ -46,7 +54,8 @@ def _new_id() -> int:
 
 class Span:
     __slots__ = ("name", "trace_id", "span_id", "parent_id",
-                 "ts_us", "dur_us", "proc", "attrs", "_t0")
+                 "ts_us", "dur_us", "proc", "attrs", "start_ns", "end_ns",
+                 "tid")
 
     def __init__(self, name: str, trace_id: int, span_id: int,
                  parent_id: Optional[int], proc: str,
@@ -59,7 +68,12 @@ class Span:
         self.attrs: Dict[str, Any] = attrs or {}
         self.ts_us = 0.0
         self.dur_us = 0.0
-        self._t0 = 0.0
+        #: epoch nanoseconds (``time.time_ns()``) of the span's two ends
+        self.start_ns = 0
+        self.end_ns = 0
+        #: the OS thread the span ran on; None for a span ingested from
+        #: an export, which does not carry it
+        self.tid: Optional[int] = None
 
     def wire_ctx(self) -> Dict[str, int]:
         """Trace context for a service message header."""
@@ -77,6 +91,8 @@ class Span:
                  d.get("proc", "?"), dict(d.get("args") or {}))
         sp.ts_us = float(d["ts"])
         sp.dur_us = float(d["dur"])
+        sp.start_ns = round(sp.ts_us * 1e3)
+        sp.end_ns = sp.start_ns + round(sp.dur_us * 1e3)
         return sp
 
 
@@ -112,14 +128,16 @@ class Tracer:
         else:
             sp = Span(name, parent.trace_id, sid, parent.span_id,
                       self.proc, attrs)
-        sp.ts_us = time.time() * 1e6
-        sp._t0 = time.perf_counter()
+        sp.tid = threading.get_native_id()
+        sp.start_ns = time.time_ns()
+        sp.ts_us = sp.start_ns / 1e3
         token = _CURRENT.set(sp)
         try:
             yield sp
         finally:
+            sp.end_ns = time.time_ns()
             _CURRENT.reset(token)
-            sp.dur_us = (time.perf_counter() - sp._t0) * 1e6
+            sp.dur_us = (sp.end_ns - sp.start_ns) / 1e3
             if len(self.spans) < self.capacity:
                 self.spans.append(sp)
             else:

@@ -26,6 +26,14 @@ accumulate over the microbatches without a collective and are reduced
 to each parameter's placements after the last one.  The loss is the
 mean CE over the global batch's valid tokens (``ModelAPI.loss(...,
 mesh)``), the same on every rank.
+
+With ``obs`` on, each step records the span ``train.step`` with the
+children ``train.forward`` (``model.loss``), ``train.backward``
+(``loss.backward()``, the remat recompute included; one of each per
+microbatch under accumulation, attribute ``mb``) and ``train.optimizer``
+(the gradients gathered, clipped and applied).  The device work the
+autograd engine's thread launches falls inside ``train.backward``, which
+the calling thread holds open while it runs.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import torch
 
 from ..models import layers as L
 from ..models.registry import ModelAPI
+from ..obs import NULL_OBS, Obs
 from ..optim.adamw import tree_leaves, tree_map
 
 
@@ -67,15 +76,17 @@ def make_train_step(
     mesh=None,
     grad_accum: Optional[int] = None,
     grad_transform: Optional[Callable] = None,
+    obs: Obs = NULL_OBS,
 ) -> Callable:
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
     metrics ``loss``, ``grad_norm``, ``lr`` (and the loss's ``ce``,
     ``aux``, ``tokens`` without accumulation), as the reference's.  The
     optimizer updates ``params`` in place and returns them.  ``mesh``:
     the ``DeviceMesh`` the parameters lie on (see the module's
-    docstring)."""
+    docstring); ``obs``: the handle the step's spans go to."""
     cfg = model.cfg
     accum = grad_accum if grad_accum is not None else cfg.grad_accum
+    tracer = obs.tracer
 
     def leaf(p):
         if mesh is not None and L.is_dtensor(p):
@@ -84,6 +95,10 @@ def make_train_step(
         return p.detach().requires_grad_(p.is_floating_point())
 
     def train_step(params, opt_state, batch):
+        with tracer.span("train.step"):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         # leaves that collect gradients (on one device they share the
         # parameters' memory)
         live = tree_map(leaf, params)
@@ -95,30 +110,36 @@ def make_train_step(
             loss = torch.zeros((), dtype=torch.float32,
                                device=L.local_device(
                                    tree_leaves(params)[0]))
-            for mb in _split_microbatches(batch, accum):
-                mb_loss, _ = model.loss(live, mb, mesh)
-                mb_loss.backward()
+            for i, mb in enumerate(_split_microbatches(batch, accum)):
+                with tracer.span("train.forward", mb=i):
+                    mb_loss, _ = model.loss(live, mb, mesh)
+                with tracer.span("train.backward", mb=i):
+                    mb_loss.backward()
                 loss = loss + mb_loss.detach()
             loss = loss / accum
         else:
-            loss, metrics = model.loss(live, batch, mesh)
-            loss.backward()
+            with tracer.span("train.forward"):
+                loss, metrics = model.loss(live, batch, mesh)
+            with tracer.span("train.backward"):
+                loss.backward()
             loss = loss.detach()
             metrics = {k: v.detach() for k, v in metrics.items()}
-        grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
-                         else p.grad, live)
-        if mesh is not None:
-            # the step's one reduction of each gradient
-            grads = tree_map(lambda g, p: L.with_placements(g, p.placements)
-                             if L.is_dtensor(g) else g, grads, params)
-        if accum > 1:
-            for g in tree_leaves(grads):
-                (g.to_local() if L.is_dtensor(g) else g).div_(accum)
-        del live
-        if grad_transform is not None:
-            grads = grad_transform(grads)
-        new_params, new_opt, opt_metrics = optimizer.update(
-            grads, opt_state, params)
+        with tracer.span("train.optimizer"):
+            grads = tree_map(lambda p: torch.zeros_like(p)
+                             if p.grad is None else p.grad, live)
+            if mesh is not None:
+                # the step's one reduction of each gradient
+                grads = tree_map(
+                    lambda g, p: L.with_placements(g, p.placements)
+                    if L.is_dtensor(g) else g, grads, params)
+            if accum > 1:
+                for g in tree_leaves(grads):
+                    (g.to_local() if L.is_dtensor(g) else g).div_(accum)
+            del live
+            if grad_transform is not None:
+                grads = grad_transform(grads)
+            new_params, new_opt, opt_metrics = optimizer.update(
+                grads, opt_state, params)
         out = {"loss": loss, **opt_metrics}
         for k, v in metrics.items():
             out[k] = v
