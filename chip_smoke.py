@@ -165,7 +165,12 @@ Phases (1-3, 3b-3e, 4-14), each of which raises on failure (exit code
              Then the kernel timed at the model's shapes in bf16 (and
              its f32 route, ``ms_f32``) beside its plain version,
              ``scaled_dot_product_attention`` and the bound, and the top
-             device operations of a prefill and of a decode step.
+             device operations of a prefill and of a decode step.  Then
+             the backward kernel (``attention_bwd_sm90``) at the three
+             benchmark cells' attention shapes, timed beside its bound
+             (five products), ``attention_vjp`` and SDPA's backward, the
+             timed call's dq, dk and dv each no worse norm-wise than
+             ``attention_vjp``'s against the f32 gradient.
 6. kernels — each clustering kernel at its path's shapes, held
              bit-exact against its plain PyTorch version on the card,
              then timed with CUDA events against the plain version and,
@@ -220,14 +225,17 @@ Phases (1-3, 3b-3e, 4-14), each of which raises on failure (exit code
              train`` on granite-20b at its published widths, 4 layers,
              batch 8 x 1,024 tokens, 10 steps: every parameter gets a
              finite nonzero gradient, flash launches 4 x 2 (the remat
-             recompute) a step on the tensor-core route, step 1's loss and
-             gradient norm within their bf16 bound of the same step with
-             the plain attention; step ms, tokens/s, peak memory and the
+             recompute) a step on the tensor-core route and one
+             ``attention_bwd_sm90`` launch a layer a step with no
+             ``attention_vjp`` backward (as in (d), 10 and 12), step 1's
+             loss and gradient norm within their bf16 bound of the same
+             step with the plain attention; step ms, tokens/s, peak memory and the
              device's busy share of one more step (profiler); the kernel
              against its plain version at the trainer's attention shape.
              (d) ``launch.train.main`` at the ``100m`` preset: 30 steps at
              lr 1e-2 with a checkpoint every 10, then ``--resume`` to 32;
-             the loss falls and the resumed run takes 2 steps.
+             the loss falls and the resumed run takes 2 steps; one
+             backward launch a layer a step.
 9. families — the moe, vlm, ssm, hybrid and audio families at their
              published widths (FAMILY_RUNS: mamba2-780m, hymba-1.5b,
              granite-moe-1b-a400m, llava-next-mistral-7b at full depth,
@@ -264,7 +272,8 @@ Phases (1-3, 3b-3e, 4-14), each of which raises on failure (exit code
              depth of them; the train cell last, as it updates them in
              place): flash launches counted over its runs only, equal to
              its attention calls (twice under remat, per microbatch), all
-             on the tensor-core route; step time (CUDA events after a
+             on the tensor-core route, and a train cell's backward launches
+             one a call per microbatch; step time (CUDA events after a
              warm-up), peak memory, bound / step time; finite logits of
              the expected shape; a train cell's step 1 (loss, gradient
              norm) within CELL_STEP1_RTOL of the same cell with the plain
@@ -303,7 +312,8 @@ Phases (1-3, 3b-3e, 4-14), each of which raises on failure (exit code
              through ``build_cell(..., mesh)`` from the same draw: loss,
              gradient norm and parameters within phase 8's bounds (equal
              when the bodies keep the unsharded arithmetic), flash
-             launches 2 x layers x microbatches a step, all sm90, the
+             launches 2 x layers x microbatches a step, all sm90, one
+             backward launch per layer and microbatch, the
              kernel against its plain version at the step's local shape;
              (b) granite-moe at published widths, MESH_MOE_LAYERS layers,
              f32 at capacity n_experts / top_k: the expert-parallel step
@@ -662,8 +672,9 @@ def card_line() -> str:
 
 
 def _kernel_name(mangled: str) -> str:
-    """``flash_attention_sm90_kernel<128>`` from an Itanium-mangled
-    kernel name, where each identifier follows its length in digits."""
+    """``flash_attention_sm90_kernel<128, true>`` from an Itanium-mangled
+    kernel name, where each identifier follows its length in digits and
+    each int / bool template argument is ``L[ib]<value>E``."""
     import re
 
     end = mangled.find("_kernel") + len("_kernel")
@@ -673,12 +684,13 @@ def _kernel_name(mangled: str) -> str:
         n = str(end - start)
         if mangled[start - len(n):start] == n and not \
                 mangled[start].isdigit():
-            t = re.match(r"IL([ib])(\d+)E", mangled[end:])
+            t = re.match(r"I((?:L[ib]\d+E)+)E", mangled[end:])
             if not t:
                 return mangled[start:end]
-            arg = (t.group(2) if t.group(1) == "i"
-                   else ("false", "true")[int(t.group(2))])
-            return f"{mangled[start:end]}<{arg}>"
+            args = [v if kind == "i" else ("false", "true")[int(v)]
+                    for kind, v in re.findall(r"L([ib])(\d+)E",
+                                              t.group(1))]
+            return f"{mangled[start:end]}<{', '.join(args)}>"
     return mangled
 
 
@@ -717,6 +729,21 @@ def hgmma_counts(sass: str) -> dict:
     return out
 
 
+def flash_hgmma(sass: str) -> dict:
+    """The HGMMA count of each bf16 flash kernel, forward and backward
+    (the backward's rowsum pass has no product); raises unless both the
+    forward and a backward kernel are there, each with HGMMA."""
+    hgmma = {k: n for k, n in hgmma_counts(sass).items()
+             if "flash_attention_sm90" in k or ("attention_bwd_sm90" in k
+                                                and "delta" not in k)}
+    fwd = [k for k in hgmma if "flash_attention_sm90" in k]
+    bwd = [k for k in hgmma if "attention_bwd_sm90" in k]
+    if not fwd or not bwd or min(hgmma.values()) == 0:
+        raise AssertionError(f"no HGMMA in a bf16 flash kernel's SASS, "
+                             f"forward and backward: {hgmma}")
+    return hgmma
+
+
 def build_report() -> dict:
     """The built library's ptxas registers / spills per kernel and the
     HGMMA count of each bf16 flash kernel; raises when the bf16 route
@@ -726,11 +753,7 @@ def build_report() -> dict:
     sass = subprocess.run(
         [_build.cuda_tool("cuobjdump"), "-sass", str(_build.library_path())],
         capture_output=True, text=True, timeout=300, check=True).stdout
-    hgmma = {k: n for k, n in hgmma_counts(sass).items()
-             if "flash_attention_sm90" in k}
-    if not hgmma or min(hgmma.values()) == 0:
-        raise AssertionError(f"no HGMMA in the bf16 flash kernel's SASS: "
-                             f"{hgmma}")
+    hgmma = flash_hgmma(sass)
     ptxas = ptxas_report(_build.build_log())
     for name, count in (("eps_neighbor_counts", 3), ("lsh_hash_resolve", 1)):
         found = {k: v for k, v in ptxas.items() if name in k}
@@ -3846,6 +3869,157 @@ def time_flash(ctx, launches: int, check: dict, card: str,
     return row
 
 
+#: the benchmark cells' attention, (b, hq, hkv, s, dh), causal
+BWD_CELL_SHAPES = {
+    "granite-20b.train_curated_1k": (8, 48, 1, 1024, 128),
+    "granite-moe-1b-a400m.train_curated_4k": (8, 16, 8, 4096, 64),
+    "granite-20b.train_curated_4k_b2": (2, 48, 1, 4096, 128),
+}
+
+
+def flash_backward_bound(b, hq, hkv, s, dh):
+    """(bound ms, bound_by, flops, bytes) of one causal attention
+    backward: five products, 10 dh flops per unmasked pair and query head,
+    over the bf16 tensor-core peak, against one read of q, k, v, the
+    output, dO and the log-sum-exp and one write of dq, dk, dv, over the
+    memory rate."""
+    flops = 10 * dh * unmasked_pairs(s, s, None) * b * hq
+    nbytes = 2 * (4 * b * hq * s * dh + 4 * b * hkv * s * dh) + 4 * b * hq * s
+    t_ops = flops / BF16_TC_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def _grad_rel_errs(got, want) -> list:
+    """dq, dk, dv's norm-wise relative errors |got - want| / |want| (the
+    largest entry's error sits at the bf16 output rounding on every
+    route)."""
+    return [float((g.float() - w).norm() / w.norm())
+            for g, w in zip(got, want)]
+
+
+def _f32_attention_grads(q, k, v, do) -> tuple:
+    """(dq, dk, dv) in f32 of causal ``ref.attention`` at the f32 values
+    of bf16 q, k, v against dO, a batch row at a time (rows are
+    independent; one row's f32 scores and their graph fit the card)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    rows = []
+    for i in range(q.shape[0]):
+        f32 = [t[i:i + 1].float().requires_grad_() for t in (q, k, v)]
+        rows.append(torch.autograd.grad(ref.attention(*f32, causal=True),
+                                        f32, do[i:i + 1].float()))
+        del f32
+    return tuple(torch.cat(g) for g in zip(*rows))
+
+
+def time_flash_backward(card: str, build: dict) -> dict:
+    """The bf16 backward kernel (``attention_bwd_sm90``) at the benchmark
+    cells' attention shapes: its time as the trainer calls it (``ms``,
+    the partials' sum included) and its three kernels' device time,
+    beside its bound, ``attention_vjp`` (the plain route it replaced,
+    ``plain_ms``) and SDPA's backward (``library_ms``; the port never
+    calls it).  The timed call's dq, dk, dv at the full shape, and
+    ``attention_vjp``'s, against the f32 gradient of the same bf16 inputs
+    (TF32 off); raises where the kernel's error is the larger in any of
+    the three."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = {}
+    for cell, (b, hq, hkv, s, dh) in BWD_CELL_SHAPES.items():
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        q, do = (torch.randn((b, hq, s, dh), generator=g, device="cuda")
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((b, hkv, s, dh), generator=g, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        kw = {"causal": True, "window": None, "q_offset": 0, "scale": None}
+        out, lse = fa.flash_attention(q, k, v, with_lse=True, causal=True)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o_lib = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                               enable_gqa=True)
+
+        def lib_bwd(o_lib=o_lib, leaves=leaves, do=do):
+            return torch.autograd.grad(o_lib, leaves, do, retain_graph=True)
+
+        bound_ms, bound_by, flops, nbytes = flash_backward_bound(
+            b, hq, hkv, s, dh)
+        ops.reset_launch_counts()
+        row = {
+            "shape": [b, hq, s, dh], "kv_heads": hkv,
+            "kv_splits": fa.kv_splits(
+                b, hq, hkv, s,
+                torch.cuda.get_device_properties(0).multi_processor_count),
+            "ms": time_ms(lambda: fa.attention_bwd(q, k, v, out, lse, do,
+                                                   **kw), reps=10, warmup=2),
+            "device_ms": kernel_device_ms(
+                {"attention_bwd_sm90": lambda: fa.attention_bwd(
+                    q, k, v, out, lse, do, **kw)}, reps=3)[
+                        "attention_bwd_sm90"],
+            "plain_ms": time_ms(lambda: fa.attention_vjp(q, k, v, do, **kw),
+                                reps=2, warmup=1),
+            "library_ms": time_ms(lib_bwd, reps=10, warmup=2),
+            "library_kernel": sdpa_backend(lib_bwd),
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+            "bytes": nbytes,
+            "launches_timed": ops.launch_counts()["attention_bwd_sm90"],
+        }
+        del o_lib, leaves
+        got = fa.attention_bwd(q, k, v, out, lse, do, **kw)
+        plain = fa.attention_vjp(q, k, v, do, **kw)
+        want = _f32_attention_grads(q, k, v, do)
+        row["rel_errs"] = _grad_rel_errs(got, want)
+        row["plain_rel_errs"] = _grad_rel_errs(plain, want)
+        row["rel_err"] = max(row["rel_errs"])
+        row["plain_rel_err"] = max(row["plain_rel_errs"])
+        del got, plain, want
+        if any(e > pe for e, pe in zip(row["rel_errs"],
+                                       row["plain_rel_errs"])):
+            raise AssertionError(f"attention_bwd_sm90 at {cell}'s shape: "
+                                 f"dq, dk, dv error {row['rel_errs']} "
+                                 f"above attention_vjp's "
+                                 f"{row['plain_rel_errs']}")
+        row["achieved_share_of_bound"] = bound_ms / row["device_ms"]
+        cases[cell] = row
+        print(f"attention_bwd_sm90 at {cell}'s {[b, hq, hkv, s, dh]}: "
+              f"{row['ms']:.3f} ms ({row['device_ms']:.3f} device, "
+              f"{row['kv_splits']} kv splits), attention_vjp "
+              f"{row['plain_ms']:.2f}, SDPA backward {row['library_ms']:.3f}"
+              f" ({row['library_kernel'][:50]}), bound {bound_ms:.3f} ms "
+              f"({bound_by}); grad error {row['rel_err']:.2e} against "
+              f"attention_vjp's {row['plain_rel_err']:.2e}  [{card}]",
+              flush=True)
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    first = cases["granite-20b.train_curated_1k"]
+    return {
+        "name": "attention_bwd_sm90", "route": "cuda",
+        "source": KERNEL_SOURCES["flash_attention"][0],
+        "replaces": "none: the reference differentiates chunked_attention "
+                    "through XLA; on the card it replaces attention_vjp",
+        "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": first["library_ms"], "device_ms": first["device_ms"],
+        "max_rel_err": max(c["rel_err"] for c in cases.values()),
+        "max_plain_rel_err": max(c["plain_rel_err"]
+                                 for c in cases.values()),
+        "hgmma": {k: n for k, n in build["hgmma"].items() if "bwd" in k},
+        "ptxas": {k: v for k, v in build["ptxas"].items()
+                  if "attention_bwd" in k},
+        "dtype": "bfloat16", "shape": first["shape"],
+        "per_launch": "granite-20b.train_curated_1k's shape; the other "
+                      "cells' in cases",
+        "cases": cases, "card": card,
+    }
+
+
 def _top_ops(evs, wall: float, n: int = 12) -> dict:
     by = {}
     for name, us in evs:
@@ -4204,12 +4378,15 @@ def train_path(device: str, directory) -> dict:
     _sync(device)
     launches = ops.launch_counts()["flash_attention"]
     tc = ops.entry_launch_counts()["flash_attention_sm90"]
+    bwd = backward_counts()
     peak = torch.cuda.max_memory_allocated() if on_card else None
     want = sz["steps"] * cfg.n_layers * (2 if cfg.remat else 1)
     if on_card and (launches != want or tc != want):
         raise AssertionError(f"8 (c): flash_attention launched {launches} "
                              f"times ({tc} on the tensor cores) in "
                              f"{sz['steps']} steps, expected {want}")
+    if on_card:
+        check_backward("8 (c)", bwd, sz["steps"] * cfg.n_layers)
     losses = [m["loss"] for m in steps]
     err = rel_errs(steps[0], ref)
     if (err["loss_rel_err"] > TRAIN_LOSS_RTOL
@@ -4237,7 +4414,7 @@ def train_path(device: str, directory) -> dict:
            "step_ms_median_3_on": med * 1e3, "tokens_per_s": tokens / med,
            "model_tflops_6nd": 6 * n_params * tokens / med / 1e12,
            "peak_bytes": peak, "flash_launches": launches,
-           "flash_sm90_launches": tc,
+           "flash_sm90_launches": tc, "bwd_launches": bwd,
            "flash_launches_per_step": launches / sz["steps"],
            "step1": {"loss": losses[0], "ref_loss": ref["loss"],
                      "loss_tol": TRAIN_LOSS_RTOL,
@@ -4285,6 +4462,7 @@ def train_protocol(device: str, directory) -> dict:
     resume_s = time.perf_counter() - t0
     _sync(device)
     launches = ops.launch_counts()["flash_attention"]
+    bwd = backward_counts()
     if not np.mean(losses[-5:]) < np.mean(losses[:3]):
         raise AssertionError(f"8 (d): loss did not fall: {losses}")
     if len(losses2) != 2:
@@ -4295,13 +4473,15 @@ def train_protocol(device: str, directory) -> dict:
     if device != "cpu" and launches != want:
         raise AssertionError(f"8 (d): flash_attention launched {launches} "
                              f"times, expected {want}")
+    if device != "cpu":
+        check_backward("8 (d)", bwd, 32 * cfg.n_layers)
     ckpt = Path(directory) / cfg.name
     return {"config": sz["protocol"], "params": cfg.n_params(),
             "losses": losses, "resumed_losses": losses2,
             "first_3_mean": float(np.mean(losses[:3])),
             "last_5_mean": float(np.mean(losses[-5:])),
             "run_s": first_s, "resume_run_s": resume_s,
-            "flash_launches": launches,
+            "flash_launches": launches, "bwd_launches": bwd,
             "checkpoints": sorted(p.name for p in ckpt.glob("step_*")),
             "checkpoint_bytes": sum(f.stat().st_size
                                     for f in ckpt.rglob("*") if f.is_file())}
@@ -4413,6 +4593,24 @@ def attention_calls(cfg) -> int:
     if cfg.family == "audio":
         return cfg.n_encoder_layers + 2 * cfg.n_layers
     return cfg.n_layers
+
+
+def backward_counts() -> dict:
+    """The attention backward since the last reset of the launch counts:
+    ``attention_bwd_sm90`` launches and backwards on the card that took
+    ``attention_vjp``."""
+    from repro_torch.kernels import ops
+
+    return {"kernel": ops.launch_counts()["attention_bwd_sm90"],
+            "plain": ops.plain_on_card_counts()["attention_vjp"]}
+
+
+def check_backward(where: str, got: dict, want: int) -> None:
+    """Every one of ``want`` bf16 attention backwards ran the kernel."""
+    if got != {"kernel": want, "plain": 0}:
+        raise AssertionError(f"{where}: attention backward {got}, expected "
+                             f"{want} attention_bwd_sm90 launches and no "
+                             "attention_vjp")
 
 
 def family_batch(cfg, text: int, frames: int, rng, device) -> dict:
@@ -5045,6 +5243,7 @@ def run_cell(arch: str, shape_id: str, params, device: str,
     out["warm_ms"] = warm_ms
     launches = ops.launch_counts()["flash_attention"]
     sm90 = ops.entry_launch_counts()["flash_attention_sm90"]
+    out["bwd_launches"] = backward_counts()
     out["flash_launches"] = launches
     out["flash_launches_per_run"] = launches / out["runs"]
     out["flash_sm90_launches"] = sm90
@@ -5054,6 +5253,10 @@ def run_cell(arch: str, shape_id: str, params, device: str,
                              f"{launches} times ({sm90} sm90) in "
                              f"{out['runs']} runs, expected "
                              f"{want_launches} a run, all sm90")
+    if on_card:
+        check_backward(f"cells: {arch} x {shape_id}", out["bwd_launches"],
+                       attention_calls(cfg) * cell.accum * out["runs"]
+                       if shape.kind == "train" else 0)
     if on_card:
         out["peak_bytes"] = torch.cuda.max_memory_allocated()
     out["share"] = out["bound_ms"] / out["step_ms"]
@@ -5529,7 +5732,8 @@ def train_cell_run(arch: str, cfg, batch_seq, where, steps: int,
     """``steps`` steps of ``build_cell(arch, "train_4k", where)`` (a
     device or a DeviceMesh) from ``inputs(SEED)``: -> (the cell, params,
     optimizer state, the batch, per-step metrics with CUDA-event ms,
-    flash launches and those on the tensor cores).  ``capture``: a dict in which the
+    flash launches, those on the tensor cores and the attention
+    backward's :func:`backward_counts`).  ``capture``: a dict in which the
     first attention call's inputs are kept."""
     import torch
 
@@ -5566,7 +5770,8 @@ def train_cell_run(arch: str, cfg, batch_seq, where, steps: int,
                     "lr": float(m["lr"]), "ms": ms})
     _sync(device)
     launches = (ops.launch_counts()["flash_attention"],
-                ops.entry_launch_counts().get("flash_attention_sm90", 0))
+                ops.entry_launch_counts().get("flash_attention_sm90", 0),
+                backward_counts())
     return cell, params, state, batch, out, launches
 
 
@@ -5616,7 +5821,7 @@ def mesh_train_dense(mesh, device: str, card: str) -> dict:
     gc.collect()
     _reset_peak(device)
     captured: dict = {}
-    cell, pm, sm, _, got, (fl, fl90) = train_cell_run(
+    cell, pm, sm, _, got, (fl, fl90, bwd) = train_cell_run(
         TRAIN_ARCH, cfg, shape, mesh, MESH_TRAIN_STEPS, MESH_TRAIN_ACCUM,
         capture=captured)
     peak = _peak_gb(device)
@@ -5628,6 +5833,8 @@ def mesh_train_dense(mesh, device: str, card: str) -> dict:
         raise AssertionError(f"12 (a): flash launches {fl} ({fl90} sm90) "
                              f"in {MESH_TRAIN_STEPS} steps, expected "
                              f"{per_step} a step")
+    if on_card:
+        check_backward("12 (a)", bwd, per_step // 2 * MESH_TRAIN_STEPS)
     errs = _held_steps(got, one, (TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL))
     pdiff = _max_diff(pm, want)
     lrs = sum(m["lr"] for m in one)
@@ -5649,6 +5856,7 @@ def mesh_train_dense(mesh, device: str, card: str) -> dict:
             "params_bound": 2 * lrs, "peak_gb": peak,
             "peak_gb_unsharded": peak_one, "flash_launches": fl,
             "flash_sm90_launches": fl90, "flash_launches_per_step": per_step,
+            "bwd_launches": bwd,
             "flash_check": flash, "card": card}
 
 
@@ -5814,12 +6022,13 @@ def _mesh_train_rank(rank: int, world: int, port: int, where: str,
     mesh = make_mesh(shape, ("data", "model"))
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
     torch.cuda.reset_peak_memory_stats()
-    cell, _, _, _, got, (fl, fl90) = train_cell_run(
+    cell, _, _, _, got, (fl, fl90, bwd) = train_cell_run(
         TRAIN_ARCH, cfg, (TRAIN_BATCH, TRAIN_SEQ), mesh, MESH_TRAIN_STEPS,
         MESH_TRAIN_ACCUM)
     Path(where, f"mesh_train_rank{rank}.json").write_text(json.dumps({
         "rank": rank, "steps": got, "accum": cell.accum,
         "flash_launches": fl, "flash_sm90_launches": fl90,
+        "bwd_launches": bwd,
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}))
     import torch.distributed as dist
 
@@ -5858,6 +6067,8 @@ def mesh_train_multi(world1: dict) -> dict:
                 r["flash_sm90_launches"] != r["flash_launches"]:
             raise AssertionError(f"12 multi: rank {r['rank']} flash "
                                  f"launches {r['flash_launches']}")
+        check_backward(f"12 multi: rank {r['rank']}", r["bwd_launches"],
+                       per_step // 2 * MESH_TRAIN_STEPS)
     return {"world": world, "mesh": list(shape), "ranks": ranks,
             "loss_rel_err": errs["loss"],
             "grad_norm_rel_err": errs["grad_norm"],
@@ -6532,6 +6743,7 @@ def main(argv=None) -> int:
     print("lm_path " + json.dumps(lm), flush=True)
     flash = time_flash(ctx, lm["flash_launches_per_forward"],
                        lm["flash_check"], card, build)
+    flash_bwd = time_flash_backward(card, build)
     lm_prof = profile_lm(ctx, "cuda")
     lm_prof["card"] = card
     lm_prof["flash_share_of_prefill_wall"] = (
@@ -6552,7 +6764,7 @@ def main(argv=None) -> int:
     launches["bucket_insert_pass_masked"] = \
         approx_m["a"]["entry_launches"]["bucket_insert_pass_masked"]
     kernels = check_kernels(last, launches, card, x_base, build,
-                            masked_last) + [flash]
+                            masked_last) + [flash, flash_bwd]
     # lsh_hash's second path: batched-device's standalone entry
     row1 = next(k for k in kernels if k["name"] == "lsh_hash")
     row1.update({
@@ -6755,6 +6967,23 @@ def main(argv=None) -> int:
                     r["flash_launches"] for r in mt["multi"]["ranks"]})
             k["mesh_train_steps"] = mt["a"]["steps"]
             k["mesh_train_checks"] = mt["a"]["flash_check"]
+        if k["name"] == "attention_bwd_sm90":
+            # the trainer's backwards, each phase asserted all on the kernel
+            k["launches"] = tc["bwd_launches"]["kernel"]
+            k["train_steps"] = tc["steps"]
+            k["train_protocol_launches"] = td["bwd_launches"]
+            k["cells_launches"] = {f"{m['arch']} x {m['shape']}":
+                                   m["bwd_launches"]
+                                   for m in cells["cells"]
+                                   if m["kind"] == "train"}
+            k["mesh_train_launches_per_rank"] = {
+                f"{mt['a']['arch']} x {mt['a']['layers']}L on "
+                f"{mt['a']['mesh']}, rank 0": mt["a"]["bwd_launches"]}
+            if "multi" in mt:
+                k["mesh_train_launches_per_rank"].update({
+                    f"{mt['a']['arch']} x {mt['a']['layers']}L on "
+                    f"{mt['multi']['mesh']}, rank {r['rank']}":
+                    r["bwd_launches"] for r in mt["multi"]["ranks"]})
     mark("the end")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

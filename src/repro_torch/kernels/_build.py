@@ -57,9 +57,15 @@ SIGNATURES: Dict[str, tuple] = {
     # q_offset, scale, stream: the f32 route (CUDA cores) ...
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _F, _P),
-    # ... and the bf16 route (wgmma and TMA)
-    "flash_attention_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _F, _P),
+    # ... and the bf16 route (wgmma and TMA), with lse after out (null:
+    # no log-sum-exp stored)
+    "flash_attention_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _F, _P),
+    # q, k, v, out, dout, lse, delta, dq, dk, dv, b, hq, hkv, sq, skv, dh,
+    # dh_pad, causal, has_window, window, q_offset, scale, n_split, stream:
+    # the bf16 route's backward (three kernels, one entry)
+    "attention_bwd_sm90": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 #: entry points that are a route of other kernels, counted under each of
 #: them: one fused insert pass (either route) is a launch of both bucket
@@ -78,6 +84,10 @@ KERNELS = tuple(name for name in SIGNATURES if name not in ROUTE_OF)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 #: launches per C entry point (which route of a kernel ran)
 ENTRY_LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
+#: calls on the card that a kernel's plain version served in its stead:
+#: ``attention_vjp``, a backward after a kernel forward that no backward
+#: kernel takes (f32, head_dim past 128)
+PLAIN_ON_CARD: Dict[str, int] = {"attention_vjp": 0}
 
 _lock = threading.Lock()
 # the counts' own lock: wrappers launch from several host threads at once
@@ -190,8 +200,14 @@ def launch(name: str, *args) -> None:
         ENTRY_LAUNCHES[name] += 1
 
 
+def count_plain(name: str) -> None:
+    """Count one call on the card that the plain version ``name`` served."""
+    with _count_lock:
+        PLAIN_ON_CARD[name] += 1
+
+
 def reset_launches() -> None:
     with _count_lock:
-        for counts in (LAUNCHES, ENTRY_LAUNCHES):
+        for counts in (LAUNCHES, ENTRY_LAUNCHES, PLAIN_ON_CARD):
             for name in counts:
                 counts[name] = 0

@@ -24,9 +24,15 @@ tolerances (another f32 summation order).
 
 :class:`FlashAttention` puts the kernel under autograd, for training:
 its forward is the kernel on the card (the plain version where
-``ops.attention`` runs that), and its backward is the gradient of the
-plain version, in plain PyTorch — the reference has no backward kernel
-either; it differentiates its plain ``chunked_attention`` through XLA.
+``ops.attention`` runs that).  :func:`bwd_plan` routes its backward by
+dtype and head_dim: bf16 at ``dh_pad <= 128`` to ``attention_bwd_sm90``
+(beside the forward in ``flash_attention_sm90.cu``), which recomputes P
+from the log-sum-exp that the forward then stores, as the flash
+backward does; f32, the 256 bucket and the CPU to the gradient of the
+plain version, in plain PyTorch (:func:`attention_vjp`).  The reference
+has no backward kernel; it differentiates its plain
+``chunked_attention`` through XLA.  The kernel's algorithm in plain
+PyTorch is :func:`repro_torch.kernels.ref.attention_bwd`.
 """
 
 from __future__ import annotations
@@ -81,12 +87,21 @@ def pad_head_dim(t: torch.Tensor, dh_pad: int) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def lse_rows(sq: int) -> int:
+    """Rows of each head in the log-sum-exp the bf16 forward stores for
+    the backward: sq rounded up to the 128-row query tile."""
+    return -(-sq // 128) * 128
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    q_offset: int = 0, scale: Optional[float] = None,
+                    with_lse: bool = False):
     """q (b, hq, sq, dh), k and v (b, hkv, skv, dh) on the card ->
-    (b, hq, sq, dh) in q's dtype."""
+    (b, hq, sq, dh) in q's dtype.  ``with_lse`` (the bf16 route at a
+    bucket the backward takes): also each row's log-sum-exp, f32 (b, hq,
+    :func:`lse_rows`), +inf past sq and where every key is masked —
+    ``(out, lse)``."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q and k must be 4-d, got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -113,21 +128,110 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if abs(val) > _I32:
             raise ValueError(f"flash_attention: {name} = {val} does not "
                              "fit int32")
+    if with_lse and bwd_plan(q.dtype, dh) != "wgmma":
+        raise ValueError(f"flash_attention: no log-sum-exp on the "
+                         f"{p.route} route at head_dim {dh}")
     if scale is None:
         scale = 1.0 / (dh ** 0.5)
-    if q.numel() == 0:
-        return torch.empty_like(q)
-    if k.numel() == 0:  # no key: every row is masked
-        return torch.zeros_like(q)
-    if p.route == "wgmma":
-        q, k, v = (pad_head_dim(t, p.dh_pad) for t in (q, k, v))
-    out = torch.empty_like(q)
-    _build.launch(p.entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), b, hq, hkv, sq, skv, p.dh_pad,
+    lse = torch.empty((b, hq, lse_rows(sq)), dtype=torch.float32,
+                      device=q.device) if with_lse else None
+    if q.numel() == 0 or k.numel() == 0:  # no key: every row is masked
+        out = torch.zeros_like(q)
+        if with_lse:
+            lse.fill_(float("inf"))
+    else:
+        if p.route == "wgmma":
+            q, k, v = (pad_head_dim(t, p.dh_pad) for t in (q, k, v))
+        out = torch.empty_like(q)
+        lse_ptr = () if p.route == "simt" else (
+            lse.data_ptr() if with_lse else None,)
+        _build.launch(p.entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), *lse_ptr, b, hq, hkv, sq, skv,
+                      p.dh_pad, int(causal), int(window is not None),
+                      int(window or 0), int(q_offset), float(scale),
+                      torch.cuda.current_stream(q.device).cuda_stream)
+        if p.dh_pad != dh:
+            out = out[..., :dh].contiguous()
+    return (out, lse) if with_lse else out
+
+
+#: keys of one block of the dk / dv kernel
+BWD_BLOCK_K = 128
+#: blocks a card's SM should get from the dk / dv kernel at least
+BWD_BLOCKS_PER_SM = 2
+
+
+def bwd_plan(dtype: torch.dtype, dh: int) -> str:
+    """The backward's route by dtype and head_dim: ``"wgmma"`` (the
+    ``attention_bwd_sm90`` entry, padded to :func:`plan`'s ``dh_pad``)
+    for the bf16 route at ``dh_pad <= 128``; ``"plain"``
+    (:func:`attention_vjp`) for f32 (held to 2e-5, which no bf16 product
+    meets) and the 256 bucket."""
+    p = plan(dtype, dh)
+    return "wgmma" if p.route == "wgmma" and p.bucket <= 128 else "plain"
+
+
+def kv_splits(b: int, hq: int, hkv: int, skv: int, sms: int) -> int:
+    """Slices of each kv head's query heads that the dk / dv kernel gives
+    blocks of their own (summed afterwards), so that it launches at least
+    ``BWD_BLOCKS_PER_SM`` blocks per SM where the heads allow: MQA at
+    short rows has few (batch row, kv head, key tile) blocks otherwise.
+    No slice is empty."""
+    group = hq // hkv
+    blocks = b * hkv * max(1, -(-skv // BWD_BLOCK_K))
+    want = min(group, max(1, -(-BWD_BLOCKS_PER_SM * sms // blocks)))
+    per = group // want
+    return -(-group // per)
+
+
+def attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
+                  window: Optional[int], q_offset: int,
+                  scale: Optional[float]):
+    """(dq, dk, dv) of the bf16 forward at (q, k, v) against ``dout``
+    through ``attention_bwd_sm90``, from its output ``out`` and ``lse``
+    (:func:`flash_attention` with ``with_lse``).  A row whose keys are all
+    masked has output 0 in the forward, so its gradient is that of 0."""
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if bwd_plan(q.dtype, dh) != "wgmma":
+        raise ValueError(f"attention_bwd: no backward kernel for "
+                         f"{q.dtype} at head_dim {dh}")
+    check_cuda("attention_bwd", q=(q, q.dtype, None),
+               k=(k, q.dtype, (b, hkv, skv, dh)),
+               v=(v, q.dtype, (b, hkv, skv, dh)),
+               out=(out, q.dtype, (b, hq, sq, dh)),
+               dout=(dout, q.dtype, (b, hq, sq, dh)),
+               lse=(lse, torch.float32, (b, hq, lse_rows(sq))))
+    if q.numel() == 0 or k.numel() == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    if -(-skv // BWD_BLOCK_K) > _MAX_GRID_Y:
+        raise ValueError(f"attention_bwd: {-(-skv // BWD_BLOCK_K)} key tiles"
+                         f" > {_MAX_GRID_Y}")
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    p = plan(q.dtype, dh)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_split = kv_splits(b, hq, hkv, skv, sms)
+    qp, kp, vp, dop = (pad_head_dim(t, p.dh_pad) for t in (q, k, v, dout))
+    delta = torch.empty((b, hq, lse_rows(sq)), dtype=torch.float32,
+                        device=q.device)
+    dq = torch.empty_like(qp)
+    dk = torch.empty((n_split, b, hkv, skv, p.dh_pad), dtype=torch.float32,
+                     device=q.device)
+    dv = torch.empty_like(dk)
+    _build.launch("attention_bwd_sm90", qp.data_ptr(), kp.data_ptr(),
+                  vp.data_ptr(), out.data_ptr(), dop.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, skv, dh, p.dh_pad,
                   int(causal), int(window is not None), int(window or 0),
-                  int(q_offset), float(scale),
+                  int(q_offset), float(scale), n_split,
                   torch.cuda.current_stream(q.device).cuda_stream)
-    return out if p.dh_pad == dh else out[..., :dh].contiguous()
+    # the slices' f32 partials in a fixed order, then bf16
+    dk, dv = ((t[0] if n_split == 1 else t.sum(0)).to(q.dtype)
+              for t in (dk, dv))
+    if p.dh_pad != dh:
+        dq, dk, dv = (t[..., :dh].contiguous() for t in (dq, dk, dv))
+    return dq, dk, dv
 
 
 #: bytes of f32 scores the backward recomputes at once (batch rows are
@@ -161,14 +265,24 @@ def attention_vjp(q, k, v, dout, *, causal: bool, window: Optional[int],
 
 class FlashAttention(torch.autograd.Function):
     """GQA attention with a gradient: forward through the kernel when
-    ``on_card`` (else the plain version), backward through
-    :func:`attention_vjp`.  Saves q, k and v."""
+    ``on_card`` (else the plain version).  Where :func:`bwd_plan` sends
+    the backward to the kernel, the forward also stores each row's
+    log-sum-exp and saves q, k, v, the output and it, and the backward is
+    :func:`attention_bwd`; else it saves q, k and v and the backward is
+    :func:`attention_vjp` (counted in ``_build.PLAIN_ON_CARD`` after a
+    kernel forward)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, scale, on_card):
         opts = {"causal": causal, "window": window, "q_offset": q_offset,
                 "scale": scale}
         ctx.opts = opts
+        ctx.on_card = on_card
+        ctx.kernel = on_card and bwd_plan(q.dtype, q.shape[-1]) == "wgmma"
+        if ctx.kernel:
+            out, lse = flash_attention(q, k, v, with_lse=True, **opts)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
         ctx.save_for_backward(q, k, v)
         if on_card:
             return flash_attention(q, k, v, **opts)
@@ -176,7 +290,16 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = attention_vjp(q, k, v, dout.contiguous(), **ctx.opts,
-                                   needs=ctx.needs_input_grad[:3])
+        needs = ctx.needs_input_grad[:3]
+        if ctx.kernel:
+            q, k, v, out, lse = ctx.saved_tensors
+            grads = attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                  **ctx.opts)
+            dq, dk, dv = (g if n else None for g, n in zip(grads, needs))
+        else:
+            q, k, v = ctx.saved_tensors
+            if ctx.on_card:
+                _build.count_plain("attention_vjp")
+            dq, dk, dv = attention_vjp(q, k, v, dout.contiguous(),
+                                       **ctx.opts, needs=needs)
         return dq, dk, dv, None, None, None, None, None

@@ -31,7 +31,8 @@ from . import ref as _ref
 
 #: the kernels ops dispatches to the card, each a ``<name>_launch`` C
 #: entry point in ``csrc/*.cu`` (``flash_attention`` has a second one,
-#: ``flash_attention_sm90_launch``, for bf16; ``lsh_hash`` another,
+#: ``flash_attention_sm90_launch``, for bf16, whose gradient is
+#: ``attention_bwd_sm90``; ``lsh_hash`` another,
 #: ``lsh_hash_resolve_launch``, for the engine's hash pass; the two bucket
 #: kernels share ``bucket_insert_pass_launch`` and its masked route,
 #: ``bucket_insert_pass_masked_launch``)
@@ -107,7 +108,10 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 
     When gradients are being taken for q, k or v, the call goes through
     :class:`.flash_attention.FlashAttention`: the same forward (the
-    kernel on the card, counted), and the plain version's gradient."""
+    kernel on the card, counted; on the bf16 route it also stores each
+    row's log-sum-exp), and a backward that :func:`.flash_attention.
+    bwd_plan` routes: ``attention_bwd_sm90`` on the card, else the plain
+    version's gradient."""
     on_card = _on_card(q, impl)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -134,6 +138,13 @@ def entry_launch_counts() -> Dict[str, int]:
     ``bucket_insert_pass_masked`` its masked two-table route;
     ``lsh_hash_resolve`` is ``lsh_hash`` with the directory probes."""
     return dict(_build.ENTRY_LAUNCHES)
+
+
+def plain_on_card_counts() -> Dict[str, int]:
+    """Calls on the card since the last :func:`reset_launch_counts` that
+    a plain version served in a kernel's stead: ``attention_vjp``, the
+    backward of a kernel forward that no backward kernel takes."""
+    return dict(_build.PLAIN_ON_CARD)
 
 
 def reset_launch_counts() -> None:

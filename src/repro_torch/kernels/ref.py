@@ -335,13 +335,81 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     score_dtype = torch.promote_types(q.dtype, torch.float32)
     logits = torch.einsum("bhqd,bhkd->bhqk", q, kk).to(score_dtype) \
         * scale
-    q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
-    k_pos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    mask = _attention_mask(sq, skv, causal, window, q_offset, q.device)
+    logits = logits.masked_fill(~mask[None, None], NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(vv.dtype), vv)
+
+
+def _attention_mask(sq: int, skv: int, causal: bool, window: Optional[int],
+                    q_offset: int, device) -> torch.Tensor:
+    """(sq, skv) bool: which keys each query row sees."""
+    q_pos = torch.arange(sq, device=device)[:, None] + q_offset
+    k_pos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
     if causal:
         mask &= q_pos >= k_pos
     if window is not None:
         mask &= (q_pos - k_pos) < window
-    logits = logits.masked_fill(~mask[None, None], NEG_INF)
-    p = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p.to(vv.dtype), vv)
+    return mask
+
+
+def _kernel_scores(q, k, causal, window, q_offset, scale):
+    """The bf16 kernel's scores: q . k summed in f32 (f64 inputs in f64)
+    from the unrounded inputs, times scale, -inf where masked; and the
+    mask."""
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    ct = torch.promote_types(q.dtype, torch.float32)
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    kk = k.to(ct).repeat_interleave(hq // hkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), kk) * scale
+    mask = _attention_mask(sq, skv, causal, window, q_offset, q.device)
+    return s.masked_fill(~mask[None, None], float("-inf")), mask
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
+                  window: Optional[int] = None, q_offset: int = 0,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """(b, hq, sq) natural log-sum-exp of each query row's masked, scaled
+    scores, in f32 (f64 inputs: f64); +inf for a row whose keys are all
+    masked.  What the bf16 forward stores for its backward."""
+    s, _ = _kernel_scores(q, k, causal, window, q_offset, scale)
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.where(lse == float("-inf"), float("inf"), lse)
+
+
+def attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
+                  window: Optional[int] = None, q_offset: int = 0,
+                  scale: Optional[float] = None):
+    """(dq, dk, dv) of :func:`attention` by the flash backward's algorithm
+    (``attention_bwd_sm90``) from the output ``out`` and the forward's
+    ``lse`` (:func:`attention_lse`): D = rowsum(dO o O); P = exp(S - lse),
+    masked; dV = P^T dO; dP = dO V^T; dS = P o (dP - D); dQ = dS K scale,
+    dK = dS^T Q scale, each query head's dK and dV summed into its kv
+    head.  Sums in f32 (f64 inputs: f64); P and dS are rounded to the
+    inputs' dtype before their products, as the kernel rounds them to
+    bf16.  A row whose keys are all masked gets gradient 0 (the kernel's
+    forward writes 0 there; :func:`attention`'s mean of v has another)."""
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    ct = torch.promote_types(q.dtype, torch.float32)
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    s, mask = _kernel_scores(q, k, causal, window, q_offset, scale)
+    p = torch.exp(s - lse.to(ct)[..., None]).masked_fill(~mask[None, None],
+                                                         0.0)
+    qf, dof = q.to(ct), dout.to(ct)
+    kk = k.to(ct).repeat_interleave(group, dim=1)
+    vv = v.to(ct).repeat_interleave(group, dim=1)
+    delta = (dof * out.to(ct)).sum(-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vv)
+    ds = p * (dp - delta)
+    p_r, ds_r = (t.to(q.dtype).to(ct) for t in (p, ds))
+    dv = torch.einsum("bhqk,bhqd->bhkd", p_r, dof)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds_r, qf) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds_r, kk) * scale
+    dk, dv = (t.reshape(b, hkv, group, skv, dh).sum(2) for t in (dk, dv))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -18,10 +18,13 @@ float32 (``tests/test_kernels.py``'s tolerance); in bfloat16 it is held
 against the plain version run on the f32 upcast of the same inputs and
 rounded to bf16, within one bf16 ulp (atol = rtol = 2^-7); bf16 runs on
 the tensor cores (``flash_attention_sm90``), f32 on the CUDA cores.
-Under autograd the kernel's forward carries the plain version's
-gradient: dq, dk, dv equal autograd through ``ref.attention`` at the
-same tolerances, and a training step of the smoke granite model
-launches it twice per layer (the remat recompute).
+Under autograd the bf16 forward also stores each row's log-sum-exp and
+the backward runs ``attention_bwd_sm90``: dq, dk, dv against the f32
+gradient of the same bf16 inputs no worse than the plain bf16 gradient
+(``attention_vjp``); f32 keeps ``attention_vjp``: dq, dk, dv equal
+autograd through ``ref.attention`` within 2e-5.  A training step of the
+smoke granite model launches the forward twice per layer (the remat
+recompute) and the backward kernel once.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports neither JAX nor ``repro``, so it runs on a machine that has
@@ -793,27 +796,84 @@ GRAD_CASES = [
 ]
 
 
+# the three benchmark cells' head layouts at one batch row: granite-20b's
+# 48 query heads on one kv head at 1,024 and 4,096 tokens, granite-moe's
+# 16 on 8 at head_dim 64
+CELL_GRAD_CASES = [
+    (1, 48, 1, 1024, 1024, 128, True, None, 0),
+    (1, 48, 1, 4096, 4096, 128, True, None, 0),
+    (1, 16, 8, 4096, 4096, 64, True, None, 0),
+]
+
+
+def _rel_errs(got, want):
+    """Norm-wise relative errors: the largest entry's error sits at the
+    bf16 output rounding (up to 2^-8 of the largest entry) on both routes
+    and cannot order them."""
+    return [float((g.float() - w).norm() / w.norm())
+            for g, w in zip(got, want)]
+
+
+def _check_bf16_backward(case, dev):
+    """The bf16 backward through ``attention_bwd_sm90``: one forward and
+    one backward launch, no plain backward; dq, dk, dv against the f32
+    gradient of the same bf16 inputs (TF32 off) no worse than
+    ``attention_vjp``'s bf16 gradient (the plain path's, which rounds the
+    logits and dP to bf16), each error norm-wise relative
+    (``_rel_errs``); prints both."""
+    from repro_torch.kernels import ref
+
+    *_, causal, window, q_off = case
+    kw = {"causal": causal, "window": window, "q_offset": q_off}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ins = [t.requires_grad_() for t in _flash_inputs(case, torch.bfloat16,
+                                                      dev)]
+    g = torch.Generator(device=dev).manual_seed(case[3])
+    dout = torch.randn(ins[0].shape, generator=g, device=dev).to(
+        torch.bfloat16)
+    ops.reset_launch_counts()
+    out = ops.attention(*ins, **kw)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    got = torch.autograd.grad(out, ins, dout)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert ops.launch_counts()["attention_bwd_sm90"] == 1
+    assert ops.plain_on_card_counts() == {"attention_vjp": 0}
+    f32 = [t.detach().float().requires_grad_() for t in ins]
+    want = torch.autograd.grad(ref.attention(*f32, **kw), f32,
+                               dout.float())
+    plain = [t.detach().clone().requires_grad_() for t in ins]
+    vjp = torch.autograd.grad(ref.attention(*plain, **kw), plain, dout)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+    err, plain_err = _rel_errs(got, want), _rel_errs(vjp, want)
+    print(f"{case}: dq, dk, dv error {err}, attention_vjp's {plain_err}")
+    assert all(e <= pe for e, pe in zip(err, plain_err))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", GRAD_CASES, ids=str)
 def test_flash_function_grads_match_plain(cuda, case, dtype, monkeypatch):
-    """The ``autograd.Function``'s wiring and its backward's chunking on
-    the card: the forward is one kernel launch with ``FlashAttention`` as
-    the grad_fn; dq, dk, dv equal autograd through ``ref.attention``
-    (within 2e-5 in f32, one bf16 ulp, atol = rtol = 2^-7, in bf16), with
-    the batch rows in one chunk and in a chunk each.  The values
-    themselves are held against ``jax.value_and_grad`` by the CPU tests
+    """The ``autograd.Function``'s wiring on the card: the forward is one
+    kernel launch with ``FlashAttention`` as the grad_fn.  bf16 goes
+    through the backward kernel (``_check_bf16_backward``).  f32 keeps
+    ``attention_vjp``, counted as a plain backward on the card: dq, dk,
+    dv equal autograd through ``ref.attention`` within 2e-5, with the
+    batch rows in one chunk and in a chunk each.  The values themselves
+    are held against ``jax.value_and_grad`` by the CPU tests
     (``tests/test_torch_train.py``)."""
     import repro_torch.kernels.flash_attention as fa
     from repro_torch.kernels import ref
 
+    if dtype == "bfloat16":
+        _check_bf16_backward(case, cuda)
+        return
     *_, causal, window, q_off = case
-    dt = torch.float32 if dtype == "float32" else torch.bfloat16
-    tol = 2e-5 if dtype == "float32" else 2 ** -7
-    if dt == torch.float32:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    ins = [t.requires_grad_() for t in _flash_inputs(case, dt, cuda)]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ins = [t.requires_grad_() for t in _flash_inputs(case, torch.float32,
+                                                      cuda)]
     g = torch.Generator(device=cuda).manual_seed(case[3])
-    dout = torch.randn(ins[0].shape, generator=g, device=cuda).to(dt)
+    dout = torch.randn(ins[0].shape, generator=g, device=cuda)
     plain = [t.detach().clone().requires_grad_() for t in ins]
     want = torch.autograd.grad(ref.attention(*plain, causal=causal,
                                              window=window), plain, dout)
@@ -825,10 +885,59 @@ def test_flash_function_grads_match_plain(cuda, case, dtype, monkeypatch):
         got = torch.autograd.grad(out, ins, dout)
         torch.cuda.synchronize()
         assert ops.launch_counts()["flash_attention"] == 1
+        assert ops.launch_counts()["attention_bwd_sm90"] == 0
+        assert ops.plain_on_card_counts() == {"attention_vjp": 1}
         for a, b in zip(got, want):
-            assert a.dtype == dt and a.shape == b.shape
-            torch.testing.assert_close(a.float(), b.float(), atol=tol,
-                                       rtol=tol)
+            assert a.dtype == torch.float32 and a.shape == b.shape
+            torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("case", CELL_GRAD_CASES, ids=str)
+def test_flash_backward_kernel_at_cell_layouts(cuda, case):
+    _check_bf16_backward(case, cuda)
+
+
+def test_flash_backward_256_bucket_stays_plain(cuda):
+    """head_dim 200 (the 256 bucket) in bf16: the forward on the tensor
+    cores without a log-sum-exp, the backward through ``attention_vjp``,
+    counted."""
+    case = (1, 2, 1, 130, 130, 200, True, None, 0)
+    ins = [t.requires_grad_() for t in _flash_inputs(case, torch.bfloat16,
+                                                      cuda)]
+    ops.reset_launch_counts()
+    out = ops.attention(*ins)
+    torch.autograd.grad(out, ins, torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert ops.entry_launch_counts()["flash_attention_sm90"] == 1
+    assert ops.launch_counts()["attention_bwd_sm90"] == 0
+    assert ops.plain_on_card_counts() == {"attention_vjp": 1}
+
+
+def test_flash_lse_and_no_grad_forward(cuda):
+    """The forward with the log-sum-exp store gives the same output as
+    the inference forward, and the log-sum-exp of the plain scores
+    (+inf past sq); the no-grad call stores none and launches the same
+    entry."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    for case in [(2, 4, 2, 200, 333, 128, True, None, 133),
+                 (1, 4, 2, 77, 77, 36, True, 16, 0)]:
+        *_, causal, window, q_off = case
+        kw = {"causal": causal, "window": window, "q_offset": q_off}
+        q, k, v = _flash_inputs(case, torch.bfloat16, cuda)
+        ops.reset_launch_counts()
+        plain = ops.attention(q, k, v, **kw)
+        out, lse = fa.flash_attention(q, k, v, with_lse=True, **kw)
+        torch.cuda.synchronize()
+        assert ops.entry_launch_counts()["flash_attention_sm90"] == 2
+        assert torch.equal(out, plain)
+        sq = q.shape[2]
+        assert lse.shape == (q.shape[0], q.shape[1], fa.lse_rows(sq))
+        assert bool(torch.isinf(lse[..., sq:]).all())
+        torch.testing.assert_close(lse[..., :sq],
+                                   ref.attention_lse(q, k, **kw),
+                                   atol=1e-4, rtol=1e-5)
 
 
 #: step 1's relative bounds at the smoke config, against the same step
@@ -888,6 +997,9 @@ def test_train_step_on_card_runs_flash_under_remat(cuda):
     assert ops.launch_counts()["flash_attention"] == 2 * cfg.n_layers
     assert ops.entry_launch_counts()["flash_attention_sm90"] == \
         2 * cfg.n_layers
+    # one backward kernel a layer, after the recompute; none plain
+    assert ops.launch_counts()["attention_bwd_sm90"] == cfg.n_layers
+    assert ops.plain_on_card_counts() == {"attention_vjp": 0}
     for g in tree_leaves(grads["g"]):
         assert bool(torch.isfinite(g).all()) and bool((g != 0).any())
     ref = one_step(smoke.plain_attention())
@@ -974,7 +1086,8 @@ def test_mesh_train_step_on_card_matches_unsharded(cuda):
     one and on the card unsharded, from the same draw.  At world 1 the
     mesh bodies keep the unsharded arithmetic: the losses, the gradient
     norms and the parameters are equal; the flash kernel launches 2 x
-    layers x microbatches a step, all on the tensor cores."""
+    layers x microbatches a step, all on the tensor cores, and its
+    backward kernel once a layer and microbatch, never ``attention_vjp``."""
     import importlib.util
     from pathlib import Path
 
@@ -997,9 +1110,10 @@ def test_mesh_train_step_on_card_matches_unsharded(cuda):
     finally:
         if started:
             dist.destroy_process_group()
-    (_, p1, _, _, one, _), (cell, pm, _, _, got, (fl, fl90)) = runs
+    (_, p1, _, _, one, _), (cell, pm, _, _, got, (fl, fl90, bwd)) = runs
     assert cell.accum == 2
     assert fl == fl90 == 2 * 2 * cfg.n_layers * cell.accum
+    assert bwd == {"kernel": 2 * cfg.n_layers * cell.accum, "plain": 0}
     for a, b in zip(one, got):
         assert a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
     assert smoke._max_diff(pm, smoke._to_host(p1)) == 0

@@ -13,6 +13,8 @@ The kernels themselves are held against the plain version on the card
 in ``tests/test_torch_cuda.py``.
 """
 
+import re
+
 import numpy as np
 import pytest
 
@@ -45,6 +47,56 @@ def test_f32_takes_the_cuda_core_route(dh, bucket):
         "simt", "flash_attention", dh, bucket, 64, 64)
 
 
+@pytest.mark.parametrize("dh,dh_pad,bucket", [
+    (1, 8, 64), (16, 16, 64), (36, 40, 64), (64, 64, 64), (65, 72, 128),
+    (96, 96, 128), (128, 128, 128)])
+def test_bf16_backward_takes_the_kernel(dh, dh_pad, bucket):
+    assert fa.bwd_plan(torch.bfloat16, dh) == "wgmma"
+    p = fa.plan(torch.bfloat16, dh)
+    assert (p.dh_pad, p.bucket) == (dh_pad, bucket)
+
+
+@pytest.mark.parametrize("dtype,dh", [
+    (torch.bfloat16, 129), (torch.bfloat16, 130), (torch.bfloat16, 256),
+    (torch.float32, 8), (torch.float32, 64), (torch.float32, 128)])
+def test_f32_and_the_256_bucket_keep_the_plain_backward(dtype, dh):
+    assert fa.bwd_plan(dtype, dh) == "plain"
+    if dtype == torch.bfloat16:
+        assert fa.plan(dtype, dh).dh_pad > 128
+
+
+def test_bwd_plan_refuses_what_no_route_takes():
+    with pytest.raises(TypeError):
+        fa.bwd_plan(torch.float16, 64)
+    for dh in (0, 257):
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.bwd_plan(torch.bfloat16, dh)
+
+
+@pytest.mark.parametrize("b,hq,hkv,skv,want", [
+    (8, 48, 1, 1024, 6),    # granite-20b, cell 1: 64 blocks unsplit
+    (2, 48, 1, 4096, 6),    # cell 3: 64 blocks unsplit
+    (8, 16, 8, 4096, 1),    # granite-moe, cell 2: 2,048 blocks already
+    (1, 5, 1, 128, 5),      # one head a slice at most
+    (4, 48, 1, 1024, 10),   # the mesh step's local block
+    (1, 1, 1, 1, 1),
+])
+def test_kv_splits_fill_the_card_without_empty_slices(b, hq, hkv, skv, want):
+    n = fa.kv_splits(b, hq, hkv, skv, 132)
+    assert n == want
+    group = hq // hkv
+    per = -(-group // n)
+    assert (n - 1) * per < group  # the last slice has a head
+    tiles = -(-skv // fa.BWD_BLOCK_K)
+    assert b * hkv * tiles * n >= min(
+        2 * 132, b * hkv * tiles * group)
+
+
+def test_lse_rows_round_to_the_query_tile():
+    assert [fa.lse_rows(s) for s in (1, 127, 128, 129, 4096)] == [
+        128, 128, 128, 256, 4096]
+
+
 def test_plan_refuses_what_no_route_takes():
     with pytest.raises(TypeError):
         fa.plan(torch.float16, 64)
@@ -66,6 +118,20 @@ def test_routes_are_entry_points_counted_under_one_kernel():
         assert fa.plan(dtype, 64).entry in _build.SIGNATURES
     assert set(ops.launch_counts()) == set(ops.KERNELS)
     assert set(ops.entry_launch_counts()) == set(_build.SIGNATURES)
+    # the bf16 route's backward is a kernel of its own, not a route of
+    # flash_attention, and the plain backward on the card is counted apart
+    assert "attention_bwd_sm90" in ops.KERNELS
+    assert "attention_bwd_sm90" not in _build.ROUTE_OF
+    assert fa.bwd_plan(torch.bfloat16, 128) == "wgmma"
+    assert fa.bwd_plan(torch.float32, 64) == "plain"
+    assert ops.plain_on_card_counts() == {"attention_vjp": 0}
+    # no backward kernel may carry the forward's name, which the
+    # benchmark's flash_attention_roofline prices as one forward each
+    src = (_build.CSRC / "flash_attention_sm90.cu").read_text()
+    names = re.findall(r"^(\w+_kernel)\(", src, re.M)
+    bwd = [n for n in names if "bwd" in n]
+    assert "flash_attention_sm90_kernel" in names and len(bwd) == 3
+    assert bwd and not any("flash_attention_sm90" in n for n in bwd)
 
 
 def _qkv(b, hq, hkv, sq, skv, dh, seed):

@@ -272,6 +272,59 @@ def test_build_report_parsers_read_ptxas_and_sass():
         "flash_attention_sm90_kernel<64>": 2, "lsh_hash_kernel": 0}
 
 
+def test_kernel_names_carry_every_template_argument():
+    """The bf16 flash forward's two instantiations (with and without the
+    log-sum-exp store) differ in their second argument."""
+    base = ("_ZN56_GLOBAL__N__f19cc713_23_flash_attention_sm90_cu_bed5ab3f"
+            "27flash_attention_sm90_kernelILi128ELb{}EEEv14CUtensorMap_st")
+    assert [chip_smoke._kernel_name(base.format(b)) for b in (0, 1)] == [
+        "flash_attention_sm90_kernel<128, false>",
+        "flash_attention_sm90_kernel<128, true>"]
+    assert chip_smoke._kernel_name(
+        "_ZN3_GL30attention_bwd_sm90_dkdv_kernelILi64EEEvv") == \
+        "attention_bwd_sm90_dkdv_kernel<64>"
+
+
+_FWD = "\tFunction : _ZN3_GL27flash_attention_sm90_kernelILi64ELb1EEEvv\n"
+_BWD = "\tFunction : _ZN3_GL30attention_bwd_sm90_dkdv_kernelILi64EEEvv\n"
+_DELTA = "\tFunction : _ZN3_GL31attention_bwd_sm90_delta_kernelEvv\n"
+_MMA = "  /*0a0*/ HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ ;\n"
+
+
+@pytest.mark.parametrize("sass,ok", [
+    (_FWD + _MMA + _BWD + _MMA + _DELTA, True),
+    (_BWD + _MMA + _DELTA, False),          # the forward is missing
+    (_FWD + _MMA + _DELTA, False),          # the backward is missing
+    (_FWD + _MMA + _BWD + _DELTA, False),   # a backward without HGMMA
+], ids=["both", "no_forward", "no_backward", "backward_without_hgmma"])
+def test_hgmma_gate_needs_the_forward_and_the_backward(sass, ok):
+    """The build phase's gate: the bf16 forward and its backward kernel
+    each hold HGMMA; the backward's rowsum pass is not counted."""
+    if ok:
+        assert chip_smoke.flash_hgmma(sass) == {
+            "flash_attention_sm90_kernel<64, true>": 1,
+            "attention_bwd_sm90_dkdv_kernel<64>": 1}
+    else:
+        with pytest.raises(AssertionError, match="HGMMA"):
+            chip_smoke.flash_hgmma(sass)
+
+
+@pytest.mark.parametrize("got,ok", [
+    ({"kernel": 8, "plain": 0}, True),
+    ({"kernel": 7, "plain": 1}, False),     # one backward took the plain
+    ({"kernel": 7, "plain": 0}, False),     # one backward is missing
+    ({"kernel": 16, "plain": 0}, False),    # counted twice
+])
+def test_backward_check_refuses_a_plain_or_missing_backward(got, ok):
+    """Phases 8, 10 and 12 require every bf16 attention backward of a
+    train step on the card to launch ``attention_bwd_sm90``."""
+    if ok:
+        chip_smoke.check_backward("x", got, 8)
+    else:
+        with pytest.raises(AssertionError, match="attention backward"):
+            chip_smoke.check_backward("x", got, 8)
+
+
 def test_ptxas_names_bool_template_kernels():
     """The eps kernel's two staging modes are instantiations of one
     template on a bool; the build phase tells them apart."""
@@ -355,6 +408,8 @@ def test_train_phase_runs_on_cpu(tmp_path):
         assert c["step1"]["planted_faults"][kind]["grad_norm_rel_err"] > 0
     assert c["grads_finite_nonzero"] == 21
     assert not c["flash_launches"]  # no kernel on the CPU
+    assert c["bwd_launches"] == d["bwd_launches"] == {"kernel": 0,
+                                                       "plain": 0}
     assert d["last_5_mean"] < d["first_3_mean"]
     assert len(d["resumed_losses"]) == 2
     assert d["checkpoints"] == ["step_00000020", "step_00000030"]
@@ -437,6 +492,7 @@ def test_cells_phase_runs_on_cpu():
         assert c["flops"] > 0 and c["state_bytes"] > 0
         assert c["step_ms"] > 0 and c["share"] > 0
         assert c["flash_checks"] == []
+        assert c["bwd_launches"] == {"kernel": 0, "plain": 0}
         if c["kind"] == "train":
             assert c["step1"]["loss_rel_err"] == 0
             assert c["step1"]["grad_norm_rel_err"] == 0
@@ -484,6 +540,7 @@ def test_mesh_train_phase_runs_on_cpu():
     assert a["accum"] == chip_smoke.MESH_TRAIN_ACCUM
     assert len(a["mesh_steps"]) == chip_smoke.MESH_TRAIN_STEPS
     assert a["flash_check"] == []           # the kernel is the card's
+    assert a["bwd_launches"] == {"kernel": 0, "plain": 0}
     assert b["m_rel_err"] <= b["tol"] and b["loss_rel_err"] <= b["tol"]
     assert b["drops_no_drops_capacity"] == 0
     assert c["losses"]["restored_on_mesh"] == c["losses"]["uninterrupted"]
